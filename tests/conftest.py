@@ -36,6 +36,7 @@ import pytest  # noqa: E402
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "asyncio: run test via asyncio.run")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
 
 
 # Hard cap per async test so a protocol deadlock fails the one test loudly

@@ -6,27 +6,29 @@
 Two parts, each printed as one JSON line (and written together to
 ``--out``, default ``chiprun_out/bench_torch_tick.json``):
 
-1. ``loads``: the fused-quorum kernel's device time on 16-byte-aligned
-   inputs and on the same inputs offset by one element (int32 rows 4
-   bytes off, bool rows 1 byte off), at the cluster's G=1,028 and the
-   engine plane's G=16,384 (P=8) and at G=16,421 (P=16).  Where a
-   kernel picks its load width from the pointers' alignment this
-   contrasts the two widths; both results are checked equal to the
-   plain version.  Device time per launch comes from a CUDA graph of 100
-   launches, replayed; aligned and offset alternate, 4 times each.
+1. ``kernels``: device time per launch of the fused-quorum kernel and of
+   the fused tick at the cluster's G=1,028 and the engine plane's
+   G=16,384 (P=8) and at G=16,421 (P=16), each checked equal to its plain
+   version first.  Device time per launch comes from a CUDA graph of 100
+   launches, replayed; 4 timings per kernel and shape.
 2. ``tick``: ``MultiRaftEngine.tick_once`` on the card at G=1,028 and
    G=16,384 (3 voters, acks between ticks): the host's wall time per
    tick over 50 ticks, then 50 more under ``torch.profiler``: CUDA
    kernels and copies per tick, their device time per tick (device idle
    share = 1 - device busy / unprofiled wall), the device-timeline span
    of the engine's ``tpuraft.raft_tick`` range, and the heaviest device
-   events.
+   and host events.
+
+To compare two trees on one card, run each tree's copy of this script in
+one call, in turns (parent, change, change, parent), each with its own
+``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,55 +37,62 @@ import time
 
 import numpy as np
 
-from chip_smoke import SEED, quorum_inputs, time_graph
+from chip_smoke import SEED, quorum_inputs, rand_tick_fields, time_graph
+
+SHAPES = ((1028, 8), (16384, 8), (16384 + 37, 16))
 
 
-def offset_copy(torch, t):
-    """A contiguous copy of t whose data starts one element past an
-    allocation's (aligned) start."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = buf[1:].view(t.shape)
-    out.copy_(t)
-    return out
-
-
-def part_loads(torch, quorum_cuda) -> list[dict]:
+def part_kernels(torch, quorum_cuda, tick) -> list[dict]:
     rng = np.random.default_rng(SEED)
     rows = []
-    for g, p in ((1028, 8), (16384, 8), (16384 + 37, 16)):
+    for g, p in SHAPES:
         case = [torch.from_numpy(a).cuda() for a in quorum_inputs(rng, g, p)]
-        off = [offset_copy(torch, t) for t in case]
-        assert all(t.data_ptr() % 16 == 0 for t in case)
-        assert all(t.data_ptr() % 4 != 0 for t in off if t.dtype == torch.bool)
-        want = quorum_cuda.fused_quorum_reference(*case)
-        for inputs in (case, off):
-            got = quorum_cuda.fused_quorum(*inputs)
-            for a, b in zip(got, want):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"fused_quorum differs from plain "
-                                         f"at G={g} P={p}")
-        aligned, offset = [], []
+        for a, b in zip(quorum_cuda.fused_quorum(*case),
+                        quorum_cuda.fused_quorum_reference(*case)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fused_quorum differs from plain "
+                                     f"at G={g} P={p}")
+        state = tick.group_state_from_numpy(rand_tick_fields(rng, g, p),
+                                            device="cuda")
+        params = tick.tick_params_from_numpy(
+            rng.integers(300, 1200, g), rng.integers(50, 200, g),
+            rng.integers(200, 1000, g), rng.integers(0, 2, g) * 700,
+            device="cuda")
+        now = int(rng.integers(0, 3000))
+        buf = torch.empty(tick.packed_nbytes(g), dtype=torch.uint8,
+                          device="cuda")
+        got = tick.raft_tick_outputs(state, now, params, out=buf)
+        want = tick.raft_tick_reference(state, now, params)[1]
+        for f in dataclasses.fields(want):
+            if not torch.equal(getattr(got, f.name), getattr(want, f.name)):
+                raise AssertionError(f"fused tick {f.name} differs from "
+                                     f"plain at G={g} P={p}")
+        quorum_ms, tick_ms = [], []
         for _ in range(4):
-            aligned.append(time_graph(
+            quorum_ms.append(time_graph(
                 torch, lambda: quorum_cuda.fused_quorum(*case)))
-            offset.append(time_graph(
-                torch, lambda: quorum_cuda.fused_quorum(*off)))
-        rows.append({"G": g, "P": p, "aligned_ms": aligned,
-                     "offset_ms": offset})
+            tick_ms.append(time_graph(
+                torch, lambda: tick.raft_tick_outputs(state, now, params,
+                                                      out=buf)))
+        rows.append({"G": g, "P": p, "fused_quorum_ms": quorum_ms,
+                     "fused_tick_ms": tick_ms})
     return rows
 
 
 def _device_events(prof, torch, ticks):
     """(kernels, copies, device busy us, device span us of the engine's
-    ``tpuraft.raft_tick`` range, the heaviest device events per tick)
-    from the profiler's CUDA events.  A ``record_function`` range shows
+    ``tpuraft.raft_tick`` range, the heaviest device events per tick, the
+    heaviest host events per tick by their own host time) from the
+    profiler's events.  A ``record_function`` range shows
     on the device timeline too, spanning its kernels and the gaps
     between them: it is the span, not busy time."""
     kernels = copies = 0
     busy_us = span_us = 0.0
-    per = []
+    per, host = [], []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            host.append({"name": e.key[:90], "per_tick": e.count / ticks,
+                         "host_us_per_tick": e.self_cpu_time_total / ticks})
             continue
         if getattr(e, "is_user_annotation", False) \
                 or e.key.startswith("tpuraft."):
@@ -97,13 +106,15 @@ def _device_events(prof, torch, ticks):
         per.append({"name": e.key[:90], "per_tick": e.count / ticks,
                     "us_per_tick": e.self_device_time_total / ticks})
     per.sort(key=lambda r: -r["us_per_tick"])
-    return kernels, copies, busy_us, span_us, per[:10]
+    host.sort(key=lambda r: -r["host_us_per_tick"])
+    return kernels, copies, busy_us, span_us, per[:10], host[:10]
 
 
 async def _tick_profile(torch, g, ticks=50) -> dict:
     from tpuraft_torch.conf import Configuration
     from tpuraft_torch.core.engine import MultiRaftEngine
     from tpuraft_torch.entity import PeerId
+    from tpuraft_torch.ops import tick
     from tpuraft_torch.options import TickOptions
 
     peers = [PeerId.parse(f"127.0.0.1:{7500 + i}") for i in range(3)]
@@ -144,19 +155,22 @@ async def _tick_profile(torch, g, ticks=50) -> dict:
                 wall += time.perf_counter() - t0
             return wall / n * 1e3
 
+        launches = tick.LAUNCHES
         wall_ms = run(ticks)  # the profiler's own overhead left out
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             prof_wall_ms = run(ticks)
             torch.cuda.synchronize()
-        kernels, copies, busy_us, span_us, top = _device_events(
+        launches = (tick.LAUNCHES - launches) / (2 * ticks)
+        kernels, copies, busy_us, span_us, top, host = _device_events(
             prof, torch, ticks)
         hist = eng.tick_histograms()["tick_device_ms"]
     finally:
         await eng.shutdown()
     busy_ms = busy_us / ticks / 1e3
     return {"G": g, "ticks": ticks,
+            "fused_tick_launches_per_tick": launches,
             "kernels_per_tick": kernels / ticks,
             "copies_per_tick": copies / ticks,
             "device_busy_ms_per_tick": busy_ms,
@@ -164,9 +178,10 @@ async def _tick_profile(torch, g, ticks=50) -> dict:
             "tick_once_wall_ms": wall_ms,
             "tick_once_wall_ms_profiled": prof_wall_ms,
             "tick_device_ms_p50": hist["p50"],
+            "tick_device_ms_p99": hist["p99"],
             "device_idle_share_in_tick": (1 - busy_ms / wall_ms
                                           if busy_us else None),
-            "heaviest": top}
+            "heaviest": top, "host_heaviest": host}
 
 
 def main() -> int:
@@ -180,7 +195,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_torch_tick: no CUDA device", file=sys.stderr)
         return 2
-    from tpuraft_torch.ops import quorum_cuda
+    from tpuraft_torch.ops import quorum_cuda, tick
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -189,8 +204,8 @@ def main() -> int:
     print(card, flush=True)
     quorum_cuda.load()
     res = {"card": card, "source_sha": quorum_cuda._library_path().stem}
-    res["loads"] = part_loads(torch, quorum_cuda)
-    print(json.dumps({"loads": res["loads"]}), flush=True)
+    res["kernels"] = part_kernels(torch, quorum_cuda, tick)
+    print(json.dumps({"kernels": res["kernels"]}), flush=True)
     res["tick"] = [asyncio.run(_tick_profile(torch, g))
                    for g in (1028, 16384)]
     print(json.dumps({"tick": res["tick"]}), flush=True)

@@ -2,30 +2,37 @@
 """Chip smoke for tpuraft_torch: drives the port on one CUDA card.
 
     python3 chip_smoke.py            # on a machine with a CUDA card
-    python3 chip_smoke.py --quick    # build (-Xptxas -v), compare once, stop
+    python3 chip_smoke.py --quick    # build (-Xptxas -v), compare, stop
     python3 chip_smoke.py --cpu      # rehearsal at tiny sizes on the CPU
 
 Phases (any failure exits non-zero; none is caught):
-  1. the card (nvidia-smi name and power limit) and the kernel build;
+  1. the card (nvidia-smi name and power limit) and the build of the
+     kernel library (fused quorum and fused tick, one nvcc per source);
   2. the fused-quorum CUDA kernel against its plain torch version on the
-     card at G=16,384 (P=8), G=16,421 (P=16, ragged) and the cluster's
-     G=1,028 (P=8): bit-exact, and timed with CUDA events;
-  3. raft_tick on CUDA against raft_tick on the CPU, 50 rounds of random
-     full state at G=16,384: all outputs and state fields bit-exact;
+     card at G=16,384 (P=8, 5 and 32), G=16,421 (P=16, ragged) and the
+     cluster's G=1,028 (P=8): bit-exact, and timed with CUDA events;
+  3. the fused tick (raft_tick on CUDA, one launch) against the plain
+     tick on the CPU: 50 rounds of random full state at G=16,384 P=8,
+     and rounds of edge rows at G=16,421 P=16 and G=1,028 P=5; all 11
+     outputs and 15 state fields bit-exact; then the fused tick timed
+     beside the plain tick on the card;
   4. the engine plane at 16,384 groups: MultiRaftEngine on CUDA and its
      numpy backend fed one ballot-box trace (3 voters; 5 voters with
      half the groups stalled at 2 acks) give identical commit callbacks;
   5. end to end (the main path): 3 endpoints x 1,024 engine-backed raft
      groups on the card elect, commit 8 writes per group read back from
      all three replicas, lose one endpoint, re-elect, and commit again on
-     the two survivors; the kernel's launch count must move in this phase.
-The last two lines are the kernel table and the result, both JSON.
+     the two survivors; every engine tick of this phase must be exactly
+     one fused-tick launch.
+The last three lines are the card, the kernel table and the result, the
+last two JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import subprocess
 import sys
@@ -50,10 +57,10 @@ def check(cond, msg: str) -> None:
 
 # -- phase 1: the card and the build -----------------------------------------
 
-def phase_card(args, torch, quorum_cuda) -> str:
+def phase_card(args, torch, quorum_cuda) -> tuple[str, float | None]:
     if args.cpu:
         log("[1] rehearsal on the CPU: no card, no build")
-        return ""
+        return "", None
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -71,12 +78,13 @@ def phase_card(args, torch, quorum_cuda) -> str:
     entry = ""
     for line in out.splitlines():  # -Xptxas -v for the main-path widths
         if "Compiling entry function" in line:
-            entry = next((f"P={p}" for p in (8, 16, 32)
-                          if f"kernelILi{p}EE" in line), "")
+            entry = next((f"{k} S={w}" for k in ("fused_quorum", "fused_tick")
+                          for w in (8, 16, 32)
+                          if f"{k}_kernelILi{w}EE" in line), "")
         elif entry and ("Used" in line or "spill" in line):
             log(f"    ptxas {entry}: {line.strip()}")
     quorum_cuda.load()
-    return card
+    return card, build_s
 
 
 # -- phase 2: kernel vs plain --------------------------------------------------
@@ -144,8 +152,8 @@ def time_graph(torch, fn, per_graph=100, replays=20) -> float:
 
 
 def phase_kernel(args, torch, quorum_cuda, dev) -> list[dict]:
-    shapes = [(64, 8), (37, 16)] if args.cpu else \
-        [(16384, 8), (16384 + 37, 16), (1028, 8)]
+    shapes = [(37, 16), (30, 5), (64, 8)] if args.cpu else \
+        [(16384, 8), (16384 + 37, 16), (16384, 5), (16384, 32), (1028, 8)]
     rng = np.random.default_rng(SEED)
     rows = []
     for g, p in shapes:
@@ -164,9 +172,9 @@ def phase_kernel(args, torch, quorum_cuda, dev) -> list[dict]:
                                .abs().max()))
         row = {"G": g, "P": p, "max_abs_err": err,
                "bound_ms": bound_ms(g, p)}
-        if args.cpu:
+        if args.cpu or args.quick:
             row.update(ms=None, plain_ms=None, eager_ms=None)
-        elif not args.quick:
+        else:
             n = TIMED_LAUNCHES
             row["eager_ms"] = time_events(
                 torch, lambda: quorum_cuda.fused_quorum(*case), n)
@@ -214,40 +222,177 @@ def rand_tick_fields(rng, g, p) -> dict:
     }
 
 
-def phase_tick(args, torch, dev) -> None:
+INT32_MAX = 2**31 - 1
+
+
+def edge_tick_fields(rng, g, p) -> dict:
+    """rand_tick_fields with edge rows mixed in, the rows a kernel can get
+    wrong bit by bit: witness confs whose data slots all hold negative
+    matches; matches and acks below -2^30 (down to -2^31); acks just above
+    -2^30 (so now - q_ack wraps when now is near 2^31 - 1); deadlines
+    near 2^31 - 1 (so now + interval wraps); joint, empty and
+    single-voter rows."""
+    f = rand_tick_fields(rng, g, p)
+    kind = rng.integers(0, 7, g)
+    vm, wit, match = f["voter_mask"], f["witness_mask"], f["match_rel"]
+    ack = f["last_ack"]
+    w = kind == 0                     # witness conf, negative data matches
+    vm[w] = True
+    wit[w] = False
+    wit[w, rng.integers(0, p, int(w.sum()))] = True
+    match[w] = -rng.integers(1, 50, (int(w.sum()), p))
+    low = kind == 1                   # below the -2^30 sentinel
+    pick = low[:, None] & (rng.random((g, p)) < 0.5)
+    match[pick] = rng.choice([NEG - 1, -(2**31), NEG - 7], int(pick.sum()))
+    ack[pick] = rng.choice([NEG - 1, -(2**31)], int(pick.sum()))
+    near = kind == 2                  # acks just above the sentinel
+    ack[near] = NEG + rng.integers(1, 6, (int(near.sum()), p))
+    late = kind == 3                  # deadlines that make now + x wrap
+    for k in ("elect_deadline", "hb_deadline", "snap_deadline",
+              "stepdown_deadline"):
+        f[k][late] = INT32_MAX - rng.integers(0, 3000, int(late.sum()))
+    joint = kind == 4
+    f["old_voter_mask"][joint] = rng.random((int(joint.sum()), p)) < 0.6
+    empty = kind == 5                 # no voters; or a single voter
+    vm[empty] = False
+    one = empty & (rng.random(g) < 0.5)
+    vm[one, 0] = True
+    return f
+
+
+def edge_tick_params(rng, g):
+    """[G] parameter rows with odd and negative election timeouts (floor
+    division), intervals that make now + x wrap, and disabled or
+    negative snapshot intervals."""
+    eto = rng.integers(300, 1200, g)
+    odd = rng.random(g) < 0.2
+    eto[odd] = rng.choice([-3, -1, 0, 1, 3, 7], int(odd.sum()))
+    hb = rng.integers(50, 200, g)
+    hb[rng.random(g) < 0.1] = INT32_MAX - 5
+    lease = rng.integers(200, 1000, g)
+    snap = rng.choice([0, 700, -5, INT32_MAX], g)
+    return eto, hb, lease, snap
+
+
+def edge_now(rng) -> int:
+    """A tick time: mostly ordinary, sometimes near either int32 end."""
+    return int(rng.choice([int(rng.integers(0, 3000)),
+                           INT32_MAX - int(rng.integers(0, 3000)),
+                           -(2**31) + int(rng.integers(0, 3000))],
+                          p=[0.6, 0.3, 0.1]))
+
+
+def tick_bound_ms(tick, state, params, with_state=False) -> float:
+    """Least time for the fused tick: every state field and parameter
+    read once, the packed outputs written once (and, for raft_tick, the
+    three advanced deadline rows)."""
+    g = state.role.shape[0]
+    n = sum(getattr(obj, f.name).nbytes for obj in (state, params)
+            for f in dataclasses.fields(obj))
+    n += tick.packed_nbytes(g) + (12 * g if with_state else 0)
+    return n / HBM_BYTES_PER_S * 1e3
+
+
+def tick_cases(args):
+    """(name, G, P, fields generator, params, rounds) of phase 3."""
+    if args.cpu:
+        return [("random", 256, 8, rand_tick_fields, "rows", 5),
+                ("edge", 101, 16, edge_tick_fields, "rows", 5),
+                ("edge", 64, 5, edge_tick_fields, "scalars", 5)]
+    rounds = 3 if args.quick else 50
+    return [("random", 16384, 8, rand_tick_fields, "rows", rounds),
+            ("edge", 16384 + 37, 16, edge_tick_fields, "rows", rounds),
+            ("edge", 1028, 5, edge_tick_fields, "scalars", rounds)]
+
+
+def phase_tick(args, torch, dev) -> list[dict]:
     from tpuraft_torch.ops import tick
 
-    g, p, rounds = (256, 8, 5) if args.cpu else (16384, 8, 50)
     rng = np.random.default_rng(SEED + 1)
-    fields = rand_tick_fields(rng, g, p)
-    eto = rng.integers(300, 1200, g)
-    hb = rng.integers(50, 200, g)
-    lease = rng.integers(200, 1000, g)
-    snap = rng.integers(0, 2, g) * 700
-    pd = tick.tick_params_from_numpy(eto, hb, lease, snap, device=dev)
-    pc = tick.tick_params_from_numpy(eto, hb, lease, snap, device="cpu")
-    sd = tick.group_state_from_numpy(fields, device=dev)
-    sc = tick.group_state_from_numpy(fields, device="cpu")
     fired = 0
-    for r in range(rounds):
-        now = int(rng.integers(0, 3000))
-        sd, od = tick.raft_tick(sd, now, pd)
-        sc, oc = tick.raft_tick(sc, now, pc)
-        for what, a, b in (("output", od, oc), ("state", sd, sc)):
-            an, bn = tick.outputs_to_numpy(a), tick.outputs_to_numpy(b)
-            for k in bn:
-                check(np.array_equal(an[k], bn[k]),
-                      f"round {r}: {what} {k} differs CUDA vs CPU")
-        fired += int(tick.outputs_to_numpy(oc)["elected"].sum())
-        keep = tick.outputs_to_numpy(sc)
-        fresh = rand_tick_fields(rng, g, p)
-        for k in ("match_rel", "last_ack", "granted", "role", "fence_start"):
-            keep[k] = fresh[k]
-        sd = tick.group_state_from_numpy(keep, device=dev)
-        sc = tick.group_state_from_numpy(keep, device="cpu")
+    for name, g, p, gen, kind, rounds in tick_cases(args):
+        fields = gen(rng, g, p)
+        if kind == "scalars":
+            prm = (999, 100, 900, 700)  # 0-d params; an odd timeout
+        elif name == "edge":
+            prm = edge_tick_params(rng, g)
+        else:
+            prm = (rng.integers(300, 1200, g), rng.integers(50, 200, g),
+                   rng.integers(200, 1000, g), rng.integers(0, 2, g) * 700)
+        pd = tick.tick_params_from_numpy(*prm, device=dev)
+        pc = tick.tick_params_from_numpy(*prm, device="cpu")
+        sd = tick.group_state_from_numpy(fields, device=dev)
+        sc = tick.group_state_from_numpy(fields, device="cpu")
+        before = tick.LAUNCHES
+        for r in range(rounds):
+            now = edge_now(rng) if name == "edge" else \
+                int(rng.integers(0, 3000))
+            sd, od = tick.raft_tick(sd, now, pd)
+            sc, oc = tick.raft_tick(sc, now, pc)
+            for what, a, b in (("output", od, oc), ("state", sd, sc)):
+                an, bn = tick.outputs_to_numpy(a), tick.outputs_to_numpy(b)
+                for k in bn:
+                    check(np.array_equal(an[k], bn[k]),
+                          f"{name} G={g} P={p} round {r}: {what} {k} "
+                          f"differs {dev} vs cpu")
+            fired += int(tick.outputs_to_numpy(oc)["elected"].sum())
+            keep = tick.outputs_to_numpy(sc)
+            fresh = gen(rng, g, p)
+            for k in ("match_rel", "last_ack", "granted", "role",
+                      "fence_start"):
+                keep[k] = fresh[k]
+            sd = tick.group_state_from_numpy(keep, device=dev)
+            sc = tick.group_state_from_numpy(keep, device="cpu")
+        if not args.cpu:
+            check(tick.LAUNCHES - before == rounds,
+                  f"{rounds} CUDA ticks made {tick.LAUNCHES - before} "
+                  f"fused-tick launches")
+        log(f"[3] raft_tick {dev} vs cpu: {rounds} rounds of {name} rows "
+            f"at G={g} P={p} ({kind} params), all 11 outputs and 15 state "
+            f"fields bit-exact")
     check(fired > 0, "tick phase never elected a candidate")
-    log(f"[3] raft_tick {dev} vs cpu: {rounds} rounds at G={g} P={p}, "
-        f"all 11 outputs and 15 state fields bit-exact")
+
+    rows = []
+    for g, p in ([(64, 8)] if args.cpu else
+                 [(16384, 8), (16384 + 37, 16), (1028, 8)]):
+        fields = rand_tick_fields(rng, g, p)
+        prm = (rng.integers(300, 1200, g), rng.integers(50, 200, g),
+               rng.integers(200, 1000, g), rng.integers(0, 2, g) * 700)
+        pd = tick.tick_params_from_numpy(*prm, device=dev)
+        sd = tick.group_state_from_numpy(fields, device=dev)
+        now = int(rng.integers(0, 3000))
+        buf = torch.empty(tick.packed_nbytes(g), dtype=torch.uint8,
+                          device=dev)
+        got = tick.raft_tick_outputs(sd, now, pd, out=buf)
+        want = tick.raft_tick_reference(sd, now, pd)[1]
+        err = max(int((getattr(got, f.name).to(torch.int64)
+                       - getattr(want, f.name).to(torch.int64)).abs().max())
+                  for f in dataclasses.fields(want))
+        check(err == 0, f"fused tick differs from plain at G={g} P={p}")
+        row = {"G": g, "P": p, "max_abs_err": err,
+               "bound_ms": tick_bound_ms(tick, sd, pd),
+               "bound_ms_with_state": tick_bound_ms(tick, sd, pd, True),
+               "ms": None, "plain_ms": None, "eager_ms": None,
+               "plain_eager_ms": None}
+        if not (args.cpu or args.quick):
+            n = TIMED_LAUNCHES
+
+            def fused():
+                tick.raft_tick_outputs(sd, now, pd, out=buf)
+
+            def plain():
+                tick.raft_tick_reference(sd, now, pd)
+
+            row["eager_ms"] = time_events(torch, fused, n)
+            row["ms"] = time_graph(torch, fused, replays=max(1, n // 100))
+            row["plain_ms"] = time_graph(torch, plain,
+                                         replays=max(1, n // 100))
+            row["plain_eager_ms"] = time_events(torch, plain, n // 10)
+        rows.append(row)
+        log(f"[3] fused_tick G={g} P={p}: " + ", ".join(
+            f"{k}={v}" for k, v in row.items() if k.endswith("ms")
+            or "bound" in k))
+    return rows
 
 
 # -- phase 4: the engine plane, CUDA vs numpy ----------------------------------
@@ -327,7 +472,7 @@ def make_fsm_class():
     return LogFSM
 
 
-async def phase_e2e(args, torch, quorum_cuda, dev) -> dict:
+async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
     from tpuraft_torch.conf import Configuration
     from tpuraft_torch.core.engine import MultiRaftEngine
     from tpuraft_torch.core.node import Node, State
@@ -348,7 +493,8 @@ async def phase_e2e(args, torch, quorum_cuda, dev) -> dict:
     net = InProcNetwork()
     engines, nodes, fsms = {}, {}, {}
 
-    quorum_cuda.LAUNCHES = 0  # the main path's count starts here
+    tick.LAUNCHES = 0  # the main path's counts start here
+    quorum_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
     for ep in eps:
         server = RpcServer(ep.endpoint)
@@ -460,10 +606,12 @@ async def phase_e2e(args, torch, quorum_cuda, dev) -> dict:
             await n.shutdown()
         for e in engines.values():
             await e.shutdown()
-    launches = quorum_cuda.LAUNCHES  # read right after the main path
+    launches = tick.LAUNCHES  # read right after the main path
+    quorum_launches = quorum_cuda.LAUNCHES
     hist = [e.tick_histograms()["tick_device_ms"] for e in all_engines]
     res = {
         "launches": launches,
+        "fused_quorum_launches": quorum_launches,
         "engine_ticks": sum(e.ticks for e in all_engines),
         "commit_advances": sum(e.commit_advances for e in all_engines),
         "eager_commits": sum(e.eager_commits for e in all_engines),
@@ -474,8 +622,9 @@ async def phase_e2e(args, torch, quorum_cuda, dev) -> dict:
     }
     log("[5] " + json.dumps(res))
     if not args.cpu:
-        check(launches > 0, "fused_quorum was never launched on the main "
-                            "path")
+        check(launches > 0 and launches == res["engine_ticks"],
+              f"{res['engine_ticks']} engine ticks made {launches} "
+              f"fused-tick launches (one each expected)")
     return res
 
 
@@ -485,8 +634,9 @@ def main() -> int:
                     help="rehearse every phase at tiny sizes on the CPU "
                          "(plain versions; prints no device result)")
     ap.add_argument("--quick", action="store_true",
-                    help="build with -Xptxas -v, compare the kernel once "
-                         "per shape, stop")
+                    help="build with -Xptxas -v, compare both kernels "
+                         "with their plain versions (3 tick rounds per "
+                         "case), time nothing, stop")
     ap.add_argument("--groups", type=int, default=None,
                     help="with --cpu only: raft groups per endpoint in the "
                          "end-to-end rehearsal (default 16; the card always "
@@ -501,34 +651,40 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); use --cpu for the rehearsal", file=sys.stderr)
         return 2
-    from tpuraft_torch.ops import quorum_cuda
+    from tpuraft_torch.ops import quorum_cuda, tick
 
     dev = torch.device("cpu" if args.cpu else "cuda")
-    card = phase_card(args, torch, quorum_cuda)
+    card, build_s = phase_card(args, torch, quorum_cuda)
     rows = phase_kernel(args, torch, quorum_cuda, dev)
+    tick_rows = phase_tick(args, torch, dev)
     if args.quick:
         log("[quick] build and compare done")
         return 0
-    phase_tick(args, torch, dev)
     asyncio.run(phase_engine(args, torch, dev))
-    e2e = asyncio.run(phase_e2e(args, torch, quorum_cuda, dev))
+    e2e = asyncio.run(phase_e2e(args, torch, quorum_cuda, tick, dev))
 
-    main_row = rows[-1]  # the shape the end-to-end path gives the kernel
-    kernels = [{
-        "name": "fused_quorum",
-        "route": "cuda",
-        "source": "tpuraft_torch/ops/csrc/fused_quorum.cu",
-        "replaces": "tpuraft/ops/quorum_pallas.py:108",
-        "launches": e2e["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "shape": [main_row["G"], main_row["P"]],
-        "by_shape": rows,
-    }]
+    def entry(name, source, replaces, launches, rows, **extra):
+        main_row = rows[-1]  # the shape the end-to-end path gives it
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
+                "library_ms": None, "shape": [main_row["G"], main_row["P"]],
+                "build_s": build_s, **extra, "by_shape": rows}
+
+    kernels = [
+        entry("fused_quorum", "tpuraft_torch/ops/csrc/fused_quorum.cu",
+              "tpuraft/ops/quorum_pallas.py:108", e2e["fused_quorum_launches"],
+              rows, main_path="its quorum core (quorum_core.cuh) runs "
+              "inside every fused_tick launch; its own entry is not "
+              "launched on the main path"),
+        entry("fused_tick", "tpuraft_torch/ops/csrc/fused_tick.cu",
+              "tpuraft/ops/quorum_pallas.py:108", e2e["launches"], tick_rows,
+              also_replaces="tpuraft/ops/tick.py:303 (raft_tick_outputs_jit, "
+              "the XLA program around the Pallas call)",
+              engine_ticks=e2e["engine_ticks"]),
+    ]
     for k in kernels:
         log(f"[6] {k['name']}: launches {k['launches']}, match "
             f"{'exact' if k['max_abs_err'] == 0 else k['max_abs_err']}, "
@@ -536,7 +692,7 @@ def main() -> int:
                 f"G={r['G']} P={r['P']}: kernel "
                 f"{(r['ms'] or 0) * 1e3:.3f} us, plain "
                 f"{(r['plain_ms'] or 0) * 1e3:.3f} us, bound "
-                f"{r['bound_ms'] * 1e3:.3f} us" for r in rows))
+                f"{r['bound_ms'] * 1e3:.3f} us" for r in k["by_shape"]))
     if args.cpu:
         log("rehearsal ok (cpu, tiny sizes): no device result")
         return 0

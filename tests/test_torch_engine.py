@@ -192,8 +192,9 @@ def test_torch_backend_never_ticks_before_start():
 
 async def test_default_options_need_cuda():
     """Default TickOptions tick on CUDA: without a card start() raises
-    (no silent CPU fallback); with one the kernel builds and launches."""
-    from tpuraft_torch.ops import quorum_cuda
+    (no silent CPU fallback); with one the library builds and every tick
+    is one fused-tick launch."""
+    from tpuraft_torch.ops import tick
 
     eng = tengine.MultiRaftEngine(toptions.TickOptions(max_groups=4,
                                                        max_peers=4))
@@ -201,10 +202,11 @@ async def test_default_options_need_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             await eng.start()
         return
-    before = quorum_cuda.LAUNCHES
+    before = tick.LAUNCHES
     await eng.start()
+    eng.tick_once()
     await eng.shutdown()
-    assert quorum_cuda.LAUNCHES > before
+    assert tick.LAUNCHES - before == eng.ticks == 2
 
 
 async def test_profile_dir_writes_a_chrome_trace(tmp_path):

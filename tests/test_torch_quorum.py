@@ -1,10 +1,14 @@
 """The port's fused_quorum against the JAX package's (Pallas kernel in
-interpret mode, and the XLA path), and the CUDA kernel against its plain
-version on a card.  Exact equality throughout: int32 and bool outputs.
+interpret mode, and the XLA path); the build of the port's CUDA library;
+and on a card both of its kernels (the fused quorum and the fused tick)
+against their plain versions.  Exact equality throughout: int32 and bool
+outputs.
 
 On a machine with a card (and no JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_quorum.py
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -115,6 +119,37 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         quorum_cuda.build()
 
 
+def test_library_key_covers_every_source(monkeypatch, tmp_path):
+    """The built library is keyed by every source (both kernels and the
+    header they share): an edit to any of them names a new library."""
+    src = tmp_path / "csrc"
+    shutil.copytree(quorum_cuda._CSRC, src)
+    monkeypatch.setattr(quorum_cuda, "_CSRC", src)
+    names = {quorum_cuda._library_path().name}
+    for name in (*quorum_cuda._SOURCES, *quorum_cuda._HEADERS):
+        with open(src / name, "a") as f:
+            f.write("\n// edited\n")
+        names.add(quorum_cuda._library_path().name)
+    assert len(names) == 1 + len(quorum_cuda._SOURCES) + len(
+        quorum_cuda._HEADERS)
+    assert sorted(p.name for p in quorum_cuda._CSRC.iterdir()) == sorted(
+        (*quorum_cuda._SOURCES, *quorum_cuda._HEADERS))
+
+
+def test_library_build_failure_leaves_no_files(monkeypatch, tmp_path):
+    """A compiler that fails leaves neither objects nor a library behind,
+    and the error names the failing command."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: refused' >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(quorum_cuda, "_find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(quorum_cuda, "_BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError,
+                       match=r"(?s)nvcc failed \(3\).*refused"):
+        quorum_cuda.build()
+    assert list((tmp_path / "build").iterdir()) == []
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_cuda():
     """Every P the kernel takes, ragged G, empty / single-voter / joint /
@@ -136,3 +171,39 @@ def test_kernel_matches_plain_on_cuda():
             assert t.is_cuda
             assert torch.equal(t, w), f"{name} P={p} G={g}"
     assert quorum_cuda.LAUNCHES == before + quorum_cuda.MAX_PEERS
+
+
+@pytest.mark.gpu
+def test_fused_tick_matches_plain_on_cuda():
+    """The fused tick against the plain tick, both on the card: every P
+    the kernel takes, ragged G, edge rows, 0-d and [G] parameters; all 11
+    outputs and the 15 state fields, one launch per tick."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from dataclasses import fields
+
+    from chip_smoke import edge_now, edge_tick_fields, edge_tick_params
+    from tpuraft_torch.ops import tick
+
+    rng = np.random.default_rng(11)
+    before = tick.LAUNCHES
+    for p in range(1, quorum_cuda.MAX_PEERS + 1):
+        g = int(rng.integers(1, 3000))
+        prm = (999, 100, 900, 700) if p % 2 else edge_tick_params(rng, g)
+        params = tick.tick_params_from_numpy(*prm, device="cuda")
+        state = tick.group_state_from_numpy(edge_tick_fields(rng, g, p),
+                                            device="cuda")
+        now = edge_now(rng)
+        new, out = tick.raft_tick(state, now, params)
+        want_new, want = tick.raft_tick_reference(state, now, params)
+        packed = tick.raft_tick_outputs(
+            state, now, params, out=torch.full(
+                (tick.packed_nbytes(g),), 0xAB, dtype=torch.uint8,
+                device="cuda"))
+        torch.cuda.synchronize()
+        for got, ref in ((out, want), (packed, want), (new, want_new)):
+            for f in fields(ref):
+                a, b = getattr(got, f.name), getattr(ref, f.name)
+                assert a.is_cuda and a.dtype == b.dtype
+                assert torch.equal(a, b), f"{f.name} P={p} G={g}"
+    assert tick.LAUNCHES == before + 2 * quorum_cuda.MAX_PEERS

@@ -729,27 +729,26 @@ class _NpOutputs:
 
 
 # Mirror fields staged per tick, in GroupState order: int32 planes first
-# (4-byte aligned views), then the bool planes.
+# (4-byte aligned views), then the bool planes (at any byte offset).
 _I32_FIELDS = (("role", 1), ("commit_rel", 1), ("pending_rel", 1),
                ("match_rel", 2), ("elect_deadline", 1), ("hb_deadline", 1),
                ("last_ack", 2), ("snap_deadline", 1),
                ("stepdown_deadline", 1), ("fence_start", 1))
 _BOOL_FIELDS = (("granted", 2), ("voter_mask", 2), ("old_voter_mask", 2),
                 ("quiescent", 1), ("witness_mask", 2))
-_OUT_I32 = ("commit_rel", "q_ack")
-_OUT_BOOL = ("commit_advanced", "elected", "election_due", "step_down",
-             "hb_due", "lease_valid", "snap_due", "stepdown_due", "fence_ok")
 
 
 class _TickStaging:
     """Host<->device staging for one engine's torch tick: one byte
     buffer holds every GroupState field (pinned on the host when the
     tick runs on CUDA), mirrored by one device buffer whose typed views
-    are the tick's inputs; the packed outputs come back into one more
-    host buffer."""
+    are the tick's inputs; the tick writes its packed outputs into one
+    more device buffer, which comes back in one copy."""
 
     def __init__(self, g: int, p: int, device):
         import torch
+
+        from tpuraft_torch.ops.tick import packed_nbytes
 
         self.g, self.device = g, device
         cuda = device.type == "cuda"
@@ -761,17 +760,21 @@ class _TickStaging:
                 n = int(np.prod(shape)) * item
                 layout.append((name, dtype, shape, off, off + n))
                 off += n
-        self.layout = layout
         self.host = torch.empty(off, dtype=torch.uint8, pin_memory=cuda)
         self.dev = (torch.empty(off, dtype=torch.uint8, device=device)
                     if cuda else self.host)
+        # the tick's inputs: typed views of the device buffer, made once
+        self.dev_views = {name: self.dev[a:b].view(dtype).view(shape)
+                          for name, dtype, shape, a, b in layout}
         hnp = self.host.numpy()
         self.host_views = {
             name: hnp[a:b].view(np.int32 if dtype == torch.int32 else bool)
             .reshape(shape) for name, dtype, shape, a, b in layout}
-        n_out = 4 * g * len(_OUT_I32) + g * len(_OUT_BOOL)
-        self.out_host = torch.empty(n_out, dtype=torch.uint8,
-                                    pin_memory=cuda)
+        self.out_dev = torch.empty(packed_nbytes(g), dtype=torch.uint8,
+                                   device=device)
+        self.out_host = (torch.empty(packed_nbytes(g), dtype=torch.uint8,
+                                     pin_memory=True)
+                         if cuda else self.out_dev)
 
     def fill(self, e: "MultiRaftEngine", rel, commit_rel_now) -> None:
         """Write this tick's mirrors into the host buffer (int64 time
@@ -796,31 +799,21 @@ class _TickStaging:
         """One host->device copy; returns the typed device views."""
         if self.dev is not self.host:
             self.dev.copy_(self.host, non_blocking=True)
-        return {name: self.dev[a:b].view(dtype).view(shape)
-                for name, dtype, shape, a, b in self.layout}
+        return self.dev_views
 
-    def download(self, out) -> _NpOutputs:
-        """Pack the 11 outputs into one device tensor, copy it to the
-        host once, and unpack numpy rows (copied out of the reused
+    def download(self) -> _NpOutputs:
+        """Copy the packed outputs (``out_dev``, written by the tick) to
+        the host once, and unpack numpy rows (copied out of the reused
         buffer, so a caller may keep them)."""
         import torch
 
-        ints = torch.stack([getattr(out, k) for k in _OUT_I32])
-        bools = torch.stack([getattr(out, k) for k in _OUT_BOOL])
-        packed = torch.cat([ints.view(torch.uint8).reshape(-1),
-                            bools.view(torch.uint8).reshape(-1)])
-        if self.device.type == "cuda":
-            self.out_host.copy_(packed, non_blocking=True)
+        from tpuraft_torch.ops.tick import unpack_outputs_numpy
+
+        if self.out_host is not self.out_dev:
+            self.out_host.copy_(self.out_dev, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
-            host = self.out_host.numpy().copy()
-        else:
-            host = packed.numpy().copy()
-        g, n_i = self.g, len(_OUT_I32)
-        i32 = host[:4 * g * n_i].view(np.int32).reshape(n_i, g)
-        b = host[4 * g * n_i:].view(bool).reshape(len(_OUT_BOOL), g)
-        kw = {k: i32[i] for i, k in enumerate(_OUT_I32)}
-        kw.update({k: b[i] for i, k in enumerate(_OUT_BOOL)})
-        return _NpOutputs(**kw)
+        host = self.out_host.numpy().copy()
+        return _NpOutputs(**unpack_outputs_numpy(host, self.g))
 
 
 class MultiRaftEngine:
@@ -1584,10 +1577,10 @@ class MultiRaftEngine:
                         "backend='numpy' to run the tick on the host")
                 from tpuraft_torch.ops import quorum_cuda
 
-                # build + load the fused-quorum kernel NOW, before any
-                # node registers: a multi-second nvcc build mid-protocol
-                # would block the event loop and miss every group's
-                # heartbeat window at once
+                # build + load the kernel library (the fused tick) NOW,
+                # before any node registers: a multi-second nvcc build
+                # mid-protocol would block the event loop and miss every
+                # group's heartbeat window at once
                 quorum_cuda.load()
             self._device = dev
             self._tick_fn = raft_tick_outputs
@@ -1769,9 +1762,10 @@ class MultiRaftEngine:
 
     def _device_tick(self, rel, commit_rel_now, now):
         """One torch tick: the 15 state mirrors go up in ONE
-        non-blocking copy from a pinned staging buffer, and the 11
-        outputs come back packed in ONE copy — per-field synchronous
-        copies would make copy latency the tick's cost."""
+        non-blocking copy from a pinned staging buffer, the tick (one
+        fused-tick launch on CUDA) writes its 11 outputs packed into a
+        device buffer, and they come back in ONE copy — per-field
+        synchronous copies would make copy latency the tick's cost."""
         import torch
 
         from tpuraft_torch.ops.tick import GroupState, TickParams
@@ -1788,8 +1782,8 @@ class MultiRaftEngine:
         with torch.profiler.record_function("tpuraft.raft_tick"):
             d = st.upload()
             state = GroupState(**d)
-            out = self._tick_fn(state, now, self._params_dev)
-            return st.download(out)
+            self._tick_fn(state, now, self._params_dev, out=st.out_dev)
+            return st.download()
 
     def _np_tick(self, rel, commit_rel_now, now) -> _NpOutputs:
         """Bit-exact numpy twin of tpuraft_torch.ops.tick.raft_tick (the

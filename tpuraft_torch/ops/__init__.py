@@ -2,8 +2,9 @@
 
 ``ballot`` holds the quorum math as plain torch ops (the semantic
 oracle), ``quorum_cuda`` the fused-quorum CUDA kernel with its plain
-version, and ``tick`` the whole-tick function the engine calls.
-Kernels build at first use, never at import.
+version and the loader of the CUDA library, and ``tick`` the whole-tick
+function the engine calls (one fused-tick launch on CUDA).  Kernels
+build at first use, never at import.
 """
 
 from tpuraft_torch.ops.ballot import (

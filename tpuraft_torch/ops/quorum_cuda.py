@@ -1,18 +1,23 @@
 """Fused quorum reduction: the hand-written Hopper kernel and its plain
-torch version.
+torch version; and the loader of the port's CUDA library.
 
 :func:`fused_quorum` computes, for every raft group, the three
 ``[G, P] -> [G]`` reductions of the tick (commit order statistic, vote
 quorum, quorum ack time), each joint-consensus aware.  It dispatches on
 the device of its tensors:
 
-- CUDA tensors launch ``csrc/fused_quorum.cu`` (built with ``nvcc`` for
-  ``sm_90a`` at first use, loaded with ``ctypes``), or raise;
+- CUDA tensors launch ``csrc/fused_quorum.cu`` or raise;
 - CPU tensors take :func:`fused_quorum_reference`, the same function as
   plain torch ops built on :mod:`tpuraft_torch.ops.ballot`.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
+
+:func:`load` builds one shared library from every source under ``csrc/``
+(the fused quorum, the fused tick of :mod:`tpuraft_torch.ops.tick` and
+the warp-segmented core they share) with ``nvcc`` for ``sm_90a`` at
+first use, one compiler process per source, all started together, and
+loads it with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -34,14 +39,16 @@ from tpuraft_torch.ops.ballot import (
     joint_vote_quorum,
 )
 
-MAX_PEERS = 32  # the kernel's register rows: P <= 32 slots per group
+MAX_PEERS = 32  # one warp: P <= 32 slots per group, one lane each
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "fused_quorum.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("fused_quorum.cu", "fused_tick.cu")  # each a compiler process
+_HEADERS = ("quorum_core.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -72,36 +79,57 @@ def _find_nvcc() -> str:
 
 
 def _library_path() -> Path:
-    """Where the built kernel lives: keyed by the source's and flags'
-    hash, so an edited source never loads a stale library."""
-    h = hashlib.sha256(_SRC.read_bytes()
-                       + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"libfused_quorum_{h}.so"
+    """Where the built library lives: keyed by the hash of every source
+    and the flags, so an edited source never loads a stale library."""
+    h = hashlib.sha256()
+    for name in (*_SOURCES, *_HEADERS):
+        h.update(name.encode() + b"\0" + (_CSRC / name).read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"libtpuraft_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile the kernel unless its library exists; returns (path,
-    compiler output).  ``verbose`` adds ``-Xptxas -v`` (registers,
-    spills).  Builds to a temporary name and renames it into place, so
-    a concurrent loader never sees a half-written library."""
+    """Compile the library unless it exists; returns (path, compiler
+    output).  ``verbose`` adds ``-Xptxas -v`` (registers, spills).  Each
+    source compiles in its own ``nvcc`` process, all at once; the link
+    writes a temporary name that is renamed into place, so a concurrent
+    loader never sees a half-written library."""
     so = _library_path()
     if so.exists() and not verbose:
         return so, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_find_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so, proc.stdout + proc.stderr
+    nvcc = _find_nvcc()
+    tag = f"{so.stem}.{os.getpid()}.{threading.get_ident()}"
+    objs = [_BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in _SOURCES]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    cmds = [[nvcc, *_NVCC_FLAGS, *ptxas, "-c", "-o", str(o),
+             str(_CSRC / src)] for src, o in zip(_SOURCES, objs)]
+    tmp = so.with_name(f"{tag}.tmp.so")
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        for c, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(c)}\n{out}")
+        link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return so, "".join(outs) + proc.stdout + proc.stderr
 
 
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
+    """Build (if needed) and load the library once per process."""
     global _lib
     with _lib_lock:
         if _lib is None:
@@ -111,11 +139,30 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            fn = lib.tpuraft_fused_tick
+            fn.argtypes = ([ctypes.c_void_p] * 15
+                           + [ctypes.c_void_p, ctypes.c_int] * 4
+                           + [ctypes.c_int32] + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
             if lib.tpuraft_fused_quorum_max_peers() != MAX_PEERS:
-                raise RuntimeError("fused_quorum library and wrapper "
-                                   "disagree on the peer-slot limit")
+                raise RuntimeError("kernel library and wrapper disagree "
+                                   "on the peer-slot limit")
             _lib = lib
         return _lib
+
+
+def segment_width(p: int) -> int:
+    """Lanes per group in the kernels' warp segments: the next power of
+    two >= P."""
+    return 1 << (p - 1).bit_length()
+
+
+def check_launch_size(g: int, p: int) -> None:
+    """The kernels index threads with 32-bit ints: G * S < 2^31."""
+    if g * segment_width(p) >= 2**31:
+        raise ValueError(f"G={g} groups x P={p} slots exceed one launch "
+                         f"(G * next_pow2(P) must stay below 2^31)")
 
 
 def _check(match, granted, last_ack, voter_mask, old_voter_mask) -> None:
@@ -126,6 +173,7 @@ def _check(match, granted, last_ack, voter_mask, old_voter_mask) -> None:
     if not 1 <= p <= MAX_PEERS:
         raise ValueError(f"fused_quorum: P={p} peer slots; the kernel "
                          f"takes 1..{MAX_PEERS}")
+    check_launch_size(g, p)
     for name, t, dtype in (("match", match, torch.int32),
                            ("granted", granted, torch.bool),
                            ("last_ack", last_ack, torch.int32),

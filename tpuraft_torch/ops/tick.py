@@ -3,10 +3,16 @@
 PyTorch counterpart of the JAX package's ``ops/tick.py``.  One call
 computes every group's commit advancement, election vote tally,
 election-timeout firing, leader-lease / step-down checks, heartbeat,
-snapshot and stepdown cadence, and read-fence resolution.  The three
-``[G, P] -> [G]`` quorum reductions run in the fused-quorum kernel
-(:mod:`tpuraft_torch.ops.quorum_cuda`); the [G] lanes around it are
-plain torch ops on the state's device.
+snapshot and stepdown cadence, and read-fence resolution.  It
+dispatches on the state's device:
+
+- CUDA tensors launch the fused tick, ``csrc/fused_tick.cu``: the
+  whole tick in one kernel launch (built by
+  :func:`tpuraft_torch.ops.quorum_cuda.load`), or raise;
+- CPU tensors take :func:`raft_tick_reference`, the same function as
+  plain torch ops.
+
+``LAUNCHES`` counts fused-tick launches (and nothing else).
 
 Division of labor (as in the reference design):
   - the tick mutates only *derived, monotone* state (commit_rel and
@@ -20,14 +26,16 @@ indexes are int32 relative to a per-group host-managed base.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, fields
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
+from tpuraft_torch.ops import quorum_cuda
 from tpuraft_torch.ops.ballot import NEG_INF_I32, witness_commit_clamp
-from tpuraft_torch.ops.quorum_cuda import fused_quorum
+from tpuraft_torch.ops.quorum_cuda import fused_quorum_reference
 
 # Role encoding (device plane). Learners are not a role: they sit in peer
 # slots with voter_mask=False.
@@ -35,6 +43,8 @@ ROLE_FOLLOWER = 0
 ROLE_CANDIDATE = 1
 ROLE_LEADER = 2
 ROLE_INACTIVE = 3  # unallocated group slot
+
+LAUNCHES = 0  # fused-tick launches since import (or since a caller reset it)
 
 
 @dataclass
@@ -91,6 +101,8 @@ class GroupState:
 
 _BOOL_FIELDS = frozenset(("granted", "voter_mask", "old_voter_mask",
                           "quiescent", "witness_mask"))
+_PLANES = frozenset(("match_rel", "granted", "voter_mask", "old_voter_mask",
+                     "last_ack", "witness_mask"))  # [G, P]; the rest [G]
 
 
 @dataclass
@@ -131,17 +143,165 @@ class TickOutputs:
     fence_ok: torch.Tensor       # bool [G] pending read fence satisfied
 
 
+# The packed outputs: the int32 rows, then the bool rows (one byte per
+# group each), in this order; the fused tick writes them so, and the
+# engine fetches them in one copy.
+PACKED_I32 = ("commit_rel", "q_ack")
+PACKED_BOOL = ("commit_advanced", "elected", "election_due", "step_down",
+               "hb_due", "lease_valid", "snap_due", "stepdown_due",
+               "fence_ok")
+
+
+def packed_nbytes(g: int) -> int:
+    """Bytes of the packed outputs of G groups."""
+    return 4 * g * len(PACKED_I32) + g * len(PACKED_BOOL)
+
+
+def unpack_outputs(buf: torch.Tensor, g: int) -> TickOutputs:
+    """TickOutputs as views into a packed uint8 buffer of G groups."""
+    n_i = 4 * g * len(PACKED_I32)
+    ints = buf[:n_i].view(torch.int32).view(len(PACKED_I32), g)
+    bools = buf[n_i:].view(torch.bool).view(len(PACKED_BOOL), g)
+    return TickOutputs(**{k: ints[i] for i, k in enumerate(PACKED_I32)},
+                       **{k: bools[i] for i, k in enumerate(PACKED_BOOL)})
+
+
+def unpack_outputs_numpy(host: np.ndarray, g: int) -> dict[str, np.ndarray]:
+    """The packed outputs' rows as numpy views of a host byte buffer."""
+    n_i = 4 * g * len(PACKED_I32)
+    ints = host[:n_i].view(np.int32).reshape(len(PACKED_I32), g)
+    bools = host[n_i:].view(bool).reshape(len(PACKED_BOOL), g)
+    return {**{k: ints[i] for i, k in enumerate(PACKED_I32)},
+            **{k: bools[i] for i, k in enumerate(PACKED_BOOL)}}
+
+
 def raft_tick(state: GroupState, now_ms, params: TickParams
               ) -> tuple[GroupState, TickOutputs]:
     """Advance all groups one tick.  Pure: the input state is not
-    modified.  ``now_ms`` is a Python int or a 0-d int32 tensor."""
+    modified.  ``now_ms`` is a Python int or a 0-d int32 tensor.  The
+    fused tick on CUDA, the plain version on the CPU; never falls back
+    from one to the other."""
+    dev = _tick_device(state, params)
+    if dev.type == "cpu":
+        return raft_tick_reference(state, now_ms, params)
+    g = state.role.shape[0]
+    out = torch.empty(packed_nbytes(g), dtype=torch.uint8, device=dev)
+    deadlines = torch.empty((3, g), dtype=torch.int32, device=dev)
+    _launch_fused_tick(state, now_ms, params, out, deadlines)
+    outputs = unpack_outputs(out, g)
+    new_state = dataclasses.replace(
+        state, commit_rel=outputs.commit_rel, hb_deadline=deadlines[0],
+        snap_deadline=deadlines[1], stepdown_deadline=deadlines[2])
+    return new_state, outputs
+
+
+def raft_tick_outputs(state: GroupState, now_ms, params: TickParams,
+                      out: Optional[torch.Tensor] = None) -> TickOutputs:
+    """Outputs-only tick — what the engine consumes (its numpy mirrors
+    are the state of record between ticks).  ``out``, a uint8 buffer of
+    :func:`packed_nbytes` bytes on the state's device, receives the
+    packed outputs (the fused tick writes them there; the plain version
+    copies them in), and the result is views into it."""
+    dev = _tick_device(state, params)
+    g = state.role.shape[0]
+    if out is not None:
+        if (out.dtype != torch.uint8 or tuple(out.shape)
+                != (packed_nbytes(g),) or out.device != dev
+                or not out.is_contiguous()):
+            raise ValueError(f"raft_tick_outputs: out must be a contiguous "
+                             f"uint8 [{packed_nbytes(g)}] tensor on {dev}")
+    if dev.type == "cpu":
+        outputs = raft_tick_reference(state, now_ms, params)[1]
+        if out is None:
+            return outputs
+        packed = unpack_outputs(out, g)
+        for f in fields(TickOutputs):
+            getattr(packed, f.name).copy_(getattr(outputs, f.name))
+        return packed
+    if out is None:
+        out = torch.empty(packed_nbytes(g), dtype=torch.uint8, device=dev)
+    _launch_fused_tick(state, now_ms, params, out, None)
+    return unpack_outputs(out, g)
+
+
+def _tick_device(state: GroupState, params: TickParams) -> torch.device:
+    """The device of the tick's tensors: every field of the state and
+    the parameters on one device, and one that has a tick."""
+    dev = state.match_rel.device
+    for t in (*(getattr(state, f.name) for f in fields(GroupState)),
+              *(getattr(params, f.name) for f in fields(TickParams))):
+        if t.device != dev:
+            raise ValueError(f"raft_tick: tensors on {t.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"raft_tick: unsupported device {dev}")
+    return dev
+
+
+def _launch_fused_tick(state: GroupState, now_ms, params: TickParams,
+                       out: torch.Tensor, deadlines) -> None:
+    """One launch of the fused tick: the packed outputs into ``out`` and,
+    when ``deadlines`` ([3, G] int32) is given, the advanced hb,
+    snapshot and stepdown deadline rows into it."""
+    if state.match_rel.dim() != 2:
+        raise ValueError(f"raft_tick: match_rel must be [G, P], got "
+                         f"{tuple(state.match_rel.shape)}")
+    g, p = state.match_rel.shape
+    if not 1 <= p <= quorum_cuda.MAX_PEERS:
+        raise ValueError(f"raft_tick: P={p} peer slots; the kernel takes "
+                         f"1..{quorum_cuda.MAX_PEERS}")
+    quorum_cuda.check_launch_size(g, p)
+    ptrs = []
+    for f in fields(GroupState):
+        t = getattr(state, f.name)
+        dtype = torch.bool if f.name in _BOOL_FIELDS else torch.int32
+        shape = (g, p) if f.name in _PLANES else (g,)
+        if t.dtype != dtype:
+            raise TypeError(f"raft_tick: {f.name} must be {dtype}, got "
+                            f"{t.dtype}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"raft_tick: {f.name} must be contiguous "
+                             f"{list(shape)}, got {list(t.shape)}")
+        ptrs.append(t.data_ptr())
+    for f in fields(TickParams):
+        t = getattr(params, f.name)
+        if t.dtype != torch.int32:
+            raise TypeError(f"raft_tick: {f.name} must be torch.int32, "
+                            f"got {t.dtype}")
+        if tuple(t.shape) not in ((), (g,)) or not t.is_contiguous():
+            raise ValueError(f"raft_tick: {f.name} must be a scalar or a "
+                             f"contiguous [{g}] row, got {list(t.shape)}")
+        ptrs += [t.data_ptr(), t.dim()]  # stride 0 for a scalar, 1 for a row
+    # a 0-d tensor is read by value; a Python int wraps to int32 as torch
+    # casts it
+    now = (int(now_ms) + 2**31) % 2**32 - 2**31
+    new = ([deadlines[i].data_ptr() for i in range(3)]
+           if deadlines is not None else [None] * 3)
+    if g == 0:
+        return
+    lib = quorum_cuda.load()
+    dev = state.match_rel.device
+    with torch.cuda.device(dev):
+        rc = lib.tpuraft_fused_tick(
+            *ptrs, now, out.data_ptr(), *new, g, p,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_tick kernel launch failed: cudaError "
+                           f"{rc} (G={g}, P={p})")
+    global LAUNCHES
+    LAUNCHES += 1
+
+
+def raft_tick_reference(state: GroupState, now_ms, params: TickParams
+                        ) -> tuple[GroupState, TickOutputs]:
+    """The plain version of the tick: torch ops on the state's device
+    (the fused tick must equal it bit for bit)."""
     now = now_ms
     is_leader = state.role == ROLE_LEADER
     is_follower = state.role == ROLE_FOLLOWER
     is_candidate = state.role == ROLE_CANDIDATE
 
-    # The three [G,P] -> [G] quorum reductions in one kernel launch.
-    quorum_idx, vote_ok, q_ack = fused_quorum(
+    # The three [G,P] -> [G] quorum reductions.
+    quorum_idx, vote_ok, q_ack = fused_quorum_reference(
         state.match_rel, state.granted, state.last_ack,
         state.voter_mask, state.old_voter_mask)
 
@@ -149,7 +309,7 @@ def raft_tick(state: GroupState, now_ms, params: TickParams
     # Entries before pending_rel belong to prior leaderships: never counted
     # (the Raft §5.4.2 current-term commit gate).  The commit point is
     # clamped to the best data-replica match for witness confs, after the
-    # kernel, so the fused reduction stays witness-agnostic.
+    # reductions, so they stay witness-agnostic.
     quorum_idx = witness_commit_clamp(
         quorum_idx, state.match_rel, state.voter_mask,
         state.old_voter_mask, state.witness_mask)
@@ -227,13 +387,6 @@ def raft_tick(state: GroupState, now_ms, params: TickParams
         fence_ok=fence_ok,
     )
     return new_state, outputs
-
-
-def raft_tick_outputs(state: GroupState, now_ms,
-                      params: TickParams) -> TickOutputs:
-    """Outputs-only tick — what the engine consumes (its numpy mirrors
-    are the state of record between ticks)."""
-    return raft_tick(state, now_ms, params)[1]
 
 
 def witness_lanes_available() -> bool:

@@ -8,11 +8,13 @@ Two parts, each printed as one JSON line (and written together to
 
 1. ``kernels``: device time per launch of the fused-quorum kernel and of
    the fused tick at the cluster's G=1,028 and the engine plane's
-   G=16,384 (P=8) and at G=16,421 (P=16), each checked equal to its plain
-   version first.  Device time per launch comes from a CUDA graph of 100
+   G=16,384 (P=8), at G=16,421 (P=16) and at the KV store's G=2,048
+   (P=4: a 1,024-region store sized by the server's rule), each checked
+   equal to its plain version first.  Device time per launch comes from a CUDA graph of 100
    launches, replayed; 4 timings per kernel and shape.
 2. ``tick``: ``MultiRaftEngine.tick_once`` on the card at G=1,028 and
-   G=16,384 (3 voters, acks between ticks): the host's wall time per
+   G=16,384 (P=8) and at the KV store's G=2,048 (P=4) (3 voters, acks
+   between ticks): the host's wall time per
    tick over 50 ticks, then 50 more under ``torch.profiler``: CUDA
    kernels and copies per tick, their device time per tick (device idle
    share = 1 - device busy / unprofiled wall), the device-timeline span
@@ -39,7 +41,7 @@ import numpy as np
 
 from chip_smoke import SEED, quorum_inputs, rand_tick_fields, time_graph
 
-SHAPES = ((1028, 8), (16384, 8), (16384 + 37, 16))
+SHAPES = ((1028, 8), (16384, 8), (16384 + 37, 16), (2048, 4))
 
 
 def part_kernels(torch, quorum_cuda, tick) -> list[dict]:
@@ -110,7 +112,7 @@ def _device_events(prof, torch, ticks):
     return kernels, copies, busy_us, span_us, per[:10], host[:10]
 
 
-async def _tick_profile(torch, g, ticks=50) -> dict:
+async def _tick_profile(torch, g, p, ticks=50) -> dict:
     from tpuraft_torch.conf import Configuration
     from tpuraft_torch.core.engine import MultiRaftEngine
     from tpuraft_torch.entity import PeerId
@@ -119,7 +121,7 @@ async def _tick_profile(torch, g, ticks=50) -> dict:
 
     peers = [PeerId.parse(f"127.0.0.1:{7500 + i}") for i in range(3)]
     conf = Configuration(peers)
-    eng = MultiRaftEngine(TickOptions(max_groups=g, max_peers=8,
+    eng = MultiRaftEngine(TickOptions(max_groups=g, max_peers=p,
                                       eager_commit=False))
     await eng.start()
     try:
@@ -169,7 +171,7 @@ async def _tick_profile(torch, g, ticks=50) -> dict:
     finally:
         await eng.shutdown()
     busy_ms = busy_us / ticks / 1e3
-    return {"G": g, "ticks": ticks,
+    return {"G": g, "P": p, "ticks": ticks,
             "fused_tick_launches_per_tick": launches,
             "kernels_per_tick": kernels / ticks,
             "copies_per_tick": copies / ticks,
@@ -206,8 +208,8 @@ def main() -> int:
     res = {"card": card, "source_sha": quorum_cuda._library_path().stem}
     res["kernels"] = part_kernels(torch, quorum_cuda, tick)
     print(json.dumps({"kernels": res["kernels"]}), flush=True)
-    res["tick"] = [asyncio.run(_tick_profile(torch, g))
-                   for g in (1028, 16384)]
+    res["tick"] = [asyncio.run(_tick_profile(torch, g, p))
+                   for g, p in ((1028, 8), (16384, 8), (2048, 4))]
     print(json.dumps({"tick": res["tick"]}), flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

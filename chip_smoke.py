@@ -9,13 +9,14 @@ Phases (any failure exits non-zero; none is caught):
   1. the card (nvidia-smi name and power limit) and the build of the
      kernel library (fused quorum and fused tick, one nvcc per source);
   2. the fused-quorum CUDA kernel against its plain torch version on the
-     card at G=16,384 (P=8, 5 and 32), G=16,421 (P=16, ragged) and the
-     cluster's G=1,028 (P=8): bit-exact, and timed with CUDA events;
+     card at G=16,384 (P=8, 5 and 32), G=16,421 (P=16, ragged), the
+     cluster's G=1,028 (P=8) and the KV store's G=2,048 (P=4):
+     bit-exact, and timed with CUDA events;
   3. the fused tick (raft_tick on CUDA, one launch) against the plain
-     tick on the CPU: 50 rounds of random full state at G=16,384 P=8,
-     and rounds of edge rows at G=16,421 P=16 and G=1,028 P=5; all 11
-     outputs and 15 state fields bit-exact; then the fused tick timed
-     beside the plain tick on the card;
+     tick on the CPU: 50 rounds of random full state at G=16,384 P=8
+     and G=2,048 P=4, and rounds of edge rows at G=16,421 P=16, G=1,028
+     P=5 and G=2,048 P=4; all 11 outputs and 15 state fields bit-exact;
+     then the fused tick timed beside the plain tick on the card;
   4. the engine plane at 16,384 groups: MultiRaftEngine on CUDA and its
      numpy backend fed one ballot-box trace (3 voters; 5 voters with
      half the groups stalled at 2 acks) give identical commit callbacks;
@@ -23,7 +24,25 @@ Phases (any failure exits non-zero; none is caught):
      groups on the card elect, commit 8 writes per group read back from
      all three replicas, lose one endpoint, re-elect, and commit again on
      the two survivors; every engine tick of this phase must be exactly
-     one fused-tick launch.
+     one fused-tick launch;
+  6. the KV store on the card (the main path as users run it), durable
+     under a temporary directory, every engine tick one fused-tick
+     launch:
+     A. 3 stores x 1,024 pre-split regions, one MultiRaftEngine each
+        (G=2,048, P=4, 20 ms tick), file:// logs, meta and snapshots
+        (snap_due every 30 s), SAFE reads, a batching client: 16,384
+        1,000-byte records loaded, YCSB-A (50/50 read/update, zipfian
+        0.99) from 64 workers, one store stopped (its regions re-elect
+        and take a write) and restarted from its directory (log replay
+        and snapshot installs); every record read back equal on all 3
+        replicas, the recorded history linearizable, device fences and
+        snap_due snapshots taken;
+     B. 3 stores x 256 regions with lease reads and quiescence: reads
+        equal to the loaded values, lease-lane hits, hibernation after
+        an idle spell;
+     C. the entry point: 3 `python -m tpuraft_torch.examples.rheakv_server
+        --engine` processes over TCP, 64 regions, 1,024 keys written and
+        read back, then SIGTERM: each drains clean and exits 0.
 The last three lines are the card, the kernel table and the result, the
 last two JSON.
 """
@@ -32,8 +51,12 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import bisect
 import dataclasses
+import itertools
 import json
+import os
+import struct
 import subprocess
 import sys
 import time
@@ -44,6 +67,10 @@ NEG = -(2**30)
 SEED = 0                   # every input of every phase comes from it
 TIMED_LAUNCHES = 2000      # kernel and plain launches timed per shape
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+# the engine of a 1,024-region, 3-store KV store sized by the server's rule
+# (tpuraft_torch/examples/rheakv_server.py): G = 1 << max(4, (1024 + 3)
+# .bit_length()), P = max(4, 3 + 1)
+KV_SHAPE = (2048, 4)
 
 
 def log(*a) -> None:
@@ -152,8 +179,9 @@ def time_graph(torch, fn, per_graph=100, replays=20) -> float:
 
 
 def phase_kernel(args, torch, quorum_cuda, dev) -> list[dict]:
-    shapes = [(37, 16), (30, 5), (64, 8)] if args.cpu else \
-        [(16384, 8), (16384 + 37, 16), (16384, 5), (16384, 32), (1028, 8)]
+    shapes = [(37, 16), (30, 5), (64, 8), (48, 4)] if args.cpu else \
+        [(16384, 8), (16384 + 37, 16), (16384, 5), (16384, 32), (1028, 8),
+         KV_SHAPE]
     rng = np.random.default_rng(SEED)
     rows = []
     for g, p in shapes:
@@ -298,11 +326,16 @@ def tick_cases(args):
     if args.cpu:
         return [("random", 256, 8, rand_tick_fields, "rows", 5),
                 ("edge", 101, 16, edge_tick_fields, "rows", 5),
-                ("edge", 64, 5, edge_tick_fields, "scalars", 5)]
+                ("edge", 64, 5, edge_tick_fields, "scalars", 5),
+                ("random", 48, 4, rand_tick_fields, "rows", 5),
+                ("edge", 48, 4, edge_tick_fields, "rows", 5)]
     rounds = 3 if args.quick else 50
+    g, p = KV_SHAPE
     return [("random", 16384, 8, rand_tick_fields, "rows", rounds),
             ("edge", 16384 + 37, 16, edge_tick_fields, "rows", rounds),
-            ("edge", 1028, 5, edge_tick_fields, "scalars", rounds)]
+            ("edge", 1028, 5, edge_tick_fields, "scalars", rounds),
+            ("random", g, p, rand_tick_fields, "rows", rounds),
+            ("edge", g, p, edge_tick_fields, "rows", rounds)]
 
 
 def phase_tick(args, torch, dev) -> list[dict]:
@@ -353,8 +386,8 @@ def phase_tick(args, torch, dev) -> list[dict]:
     check(fired > 0, "tick phase never elected a candidate")
 
     rows = []
-    for g, p in ([(64, 8)] if args.cpu else
-                 [(16384, 8), (16384 + 37, 16), (1028, 8)]):
+    for g, p in ([(64, 8), (48, 4)] if args.cpu else
+                 [(16384, 8), (16384 + 37, 16), (1028, 8), KV_SHAPE]):
         fields = rand_tick_fields(rng, g, p)
         prm = (rng.integers(300, 1200, g), rng.integers(50, 200, g),
                rng.integers(200, 1000, g), rng.integers(0, 2, g) * 700)
@@ -628,6 +661,599 @@ async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
     return res
 
 
+# -- phase 6: the KV store on the card ----------------------------------------
+
+KV_VALUE_BYTES = 1000      # YCSB's default record: 10 fields x 100 bytes
+KV_KEYS_PER_REGION = 16
+KV_WORKERS = 64
+ZIPF_THETA = 0.99          # YCSB's zipfian constant
+KV_ETO_MS = 2000           # election timeout of the in-process stores
+# snap_due fires within leg A; at 10 s the snapshot herd of 3,072
+# replicas cut the mix from 423 to 40-57 ops/s (bench_torch_kv.py)
+KV_SNAPSHOT_SECS = 30
+KV_DISK_BUDGET = 4 << 30   # explicit: statvfs may read a shared disk FULL
+
+
+def engine_shape(n_regions: int, n_stores: int = 3) -> tuple[int, int]:
+    """The server's engine sizing rule (examples/rheakv_server.py)."""
+    return 1 << max(4, (n_regions + 3).bit_length()), max(4, n_stores + 1)
+
+
+def kv_key(i: int, n_keys: int) -> bytes:
+    """Record i of n_keys: a 4-byte big-endian prefix spreads the records
+    evenly over the server's pre-split regions, then a YCSB-style name."""
+    return struct.pack(">I", i * (1 << 32) // n_keys) + b"user%d" % i
+
+
+class KVValues:
+    """1,000-byte values made from the seed, each unique to its write (its
+    op number leads it), so the checker can tell every write apart."""
+
+    def __init__(self, rng):
+        self.pool = rng.bytes(4 * KV_VALUE_BYTES)
+
+    def __call__(self, op: int) -> bytes:
+        head = b"%010d|" % op
+        off = (op * 7919) % (3 * KV_VALUE_BYTES)
+        return head + self.pool[off:off + KV_VALUE_BYTES - len(head)]
+
+
+def zipf_keys(rng, n_keys: int, n: int) -> np.ndarray:
+    """n record indices under YCSB's scrambled zipfian (theta 0.99): rank
+    r has weight 1 / r^theta, and a seeded permutation scatters the hot
+    ranks over the key space as YCSB's hash does."""
+    w = 1.0 / np.arange(1, n_keys + 1) ** ZIPF_THETA
+    ranks = rng.choice(n_keys, size=n, p=w / w.sum())
+    return rng.permutation(n_keys)[ranks]
+
+
+class KVFabric:
+    """3 StoreEngines in this process over the in-process transport (the
+    fabric of phase 5), each driving all its regions from one
+    MultiRaftEngine sized by the server's rule, durable under data_path."""
+
+    def __init__(self, args, n_regions: int, data_path: str, **store_kw):
+        from tpuraft_torch.examples.rheakv_server import derive_regions
+        from tpuraft_torch.rpc.transport import InProcNetwork
+
+        self.args = args
+        self.endpoints = [f"127.0.0.1:{6100 + i}" for i in range(3)]
+        self.regions = derive_regions(self.endpoints, n_regions)
+        self.n_regions = n_regions
+        self.data_path = data_path
+        self.store_kw = store_kw
+        self.net = InProcNetwork()
+        self.stores = {}
+        self.engines = []  # every engine this fabric started, stopped too
+
+    async def start_store(self, ep: str):
+        from tpuraft_torch.core.engine import MultiRaftEngine
+        from tpuraft_torch.options import TickOptions
+        from tpuraft_torch.rheakv.store_engine import (StoreEngine,
+                                                       StoreEngineOptions)
+        from tpuraft_torch.rpc.transport import InProcTransport, RpcServer
+
+        server = RpcServer(ep)
+        self.net.bind(server)
+        self.net.start_endpoint(ep)
+        g, p = engine_shape(self.n_regions)
+        topts = TickOptions(max_groups=g, max_peers=p, tick_interval_ms=20)
+        if self.args.cpu:
+            topts.device = "cpu"
+        engine = MultiRaftEngine(topts)
+        self.engines.append(engine)
+        opts = StoreEngineOptions(
+            server_id=ep, initial_regions=[r.copy() for r in self.regions],
+            data_path=self.data_path, election_timeout_ms=KV_ETO_MS,
+            disk_budget_bytes=KV_DISK_BUDGET, **self.store_kw)
+        store = StoreEngine(opts, server, InProcTransport(self.net, ep),
+                            multi_raft_engine=engine)
+        self.stores[ep] = store
+        await store.start()
+        return store
+
+    async def start_all(self) -> None:
+        for ep in self.endpoints:
+            await self.start_store(ep)
+
+    async def stop_store(self, ep: str) -> None:
+        self.net.stop_endpoint(ep)
+        store = self.stores.pop(ep)
+        self.net.unbind(ep)
+        await store.shutdown()
+
+    async def stop_all(self) -> None:
+        for ep in list(self.stores):
+            await self.stop_store(ep)
+
+    def client(self):
+        from tpuraft_torch.rheakv.client import BatchingOptions, RheaKVStore
+        from tpuraft_torch.rheakv.pd_client import FakePlacementDriverClient
+        from tpuraft_torch.rpc.transport import InProcTransport
+
+        return RheaKVStore(
+            FakePlacementDriverClient([r.copy() for r in self.regions]),
+            InProcTransport(self.net, "kvclient:0"),
+            batching=BatchingOptions(enabled=True))
+
+    async def wait_leaders(self, timeout_s: float) -> dict:
+        """region id -> the one store that leads it, once every region
+        has exactly one leader among the live stores."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+        while True:
+            led = {}
+            for ep, s in self.stores.items():
+                for rid in s.leader_region_ids():
+                    led.setdefault(rid, []).append(ep)
+            one = sum(len(led.get(r.id, ())) == 1 for r in self.regions)
+            if one == self.n_regions:
+                return {rid: eps[0] for rid, eps in led.items()}
+            check(loop.time() < deadline,
+                  f"{one}/{self.n_regions} regions have one leader")
+            await asyncio.sleep(0.1)
+
+
+async def run_kv_ops(kv, hist, ops, lats=None) -> None:
+    """ops = [(kind, key, value)] ("w" put, "r" get) from KV_WORKERS
+    concurrent workers, each op recorded in the history around its call;
+    an op that raises stays pending there and fails the phase."""
+    todo = iter(ops)
+    errors = []
+
+    async def worker(w):
+        for kind, key, val in todo:
+            tok = hist.invoke(w, kind, (key, val) if kind == "w" else (key,))
+            t0 = time.perf_counter()
+            try:
+                res = await (kv.put(key, val) if kind == "w"
+                             else kv.get(key))
+            except Exception as exc:  # recorded as pending, then failed
+                errors.append(f"{kind} {key!r}: {exc!r}")
+                continue
+            if lats is not None:
+                lats.append(time.perf_counter() - t0)
+            hist.complete(tok, res)
+            if kind == "w" and res is not True:
+                errors.append(f"put {key!r} not acknowledged: {res!r}")
+
+    await asyncio.gather(*(worker(w) for w in range(KV_WORKERS)))
+    check(not errors, f"{len(errors)} KV ops failed: {errors[:3]}")
+
+
+async def write_until_acked(kv, hist, key, new_value, deadline) -> int:
+    """One write a client retries through a failover until it is
+    acknowledged; each attempt is its own op in the history, with a value
+    of its own, and one that fails stays pending there (it may or may not
+    have applied).  Returns the attempts made."""
+    from tpuraft_torch.rheakv.client import RheaKVError
+
+    loop = asyncio.get_running_loop()
+    for attempt in itertools.count(1):
+        val = new_value()
+        tok = hist.invoke(-1, "w", (key, val))
+        try:
+            if await kv.put(key, val) is True:
+                hist.complete(tok, True)
+                return attempt
+        except RheaKVError:
+            pass
+        check(loop.time() < deadline, f"no write to {key!r} was "
+              f"acknowledged in {attempt} attempts")
+        await asyncio.sleep(0.2)
+
+
+def snap_due_counter():
+    """Count the snapshots the tick's snap_due lane takes: the engine
+    schedules Node._on_snapshot_due for each due slot; a call after which
+    the executor's snapshot id moved took a snapshot."""
+    from tpuraft_torch.core.node import Node
+
+    counts = {"due": 0, "taken": 0}
+    orig = Node._on_snapshot_due
+
+    async def counted(node):
+        counts["due"] += 1
+        ex = node.snapshot_executor
+        before = ex.last_snapshot_id.index if ex else 0
+        await orig(node)
+        if ex is not None and ex.last_snapshot_id.index > before:
+            counts["taken"] += 1
+
+    Node._on_snapshot_due = counted
+    return counts, lambda: setattr(Node, "_on_snapshot_due", orig)
+
+
+def tick_hist(engines) -> dict:
+    out = {}
+    for name in ("tick_device_ms", "tick_total_ms"):
+        hs = [e.tick_histograms()[name] for e in engines]
+        out[name + "_p50"] = [h["p50"] for h in hs]
+        out[name + "_p99"] = [h["p99"] for h in hs]
+    return out
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else 0.0
+
+
+async def kv_leg_store(args, quorum_cuda, tick, data_path) -> dict:
+    """Leg A: 3 stores x 1,024 durable regions; YCSB-A over 16,384 keys;
+    a store stopped and restarted from its directory."""
+    from tpuraft_torch.util.linearizability import History, check_history
+
+    n = (args.groups or 16) if args.cpu else 1024
+    n_keys = n * KV_KEYS_PER_REGION
+    rng = np.random.default_rng(SEED + 11)
+    value = KVValues(rng)
+    keys = [kv_key(i, n_keys) for i in range(n_keys)]
+    fab = KVFabric(args, n, data_path,
+                   snapshot_interval_secs=KV_SNAPSHOT_SECS)
+    hist, res, loop = History(), {"regions": n, "keys": n_keys}, \
+        asyncio.get_running_loop()
+    snaps, restore = snap_due_counter()
+    tick.LAUNCHES = 0  # this path's counts start here
+    quorum_cuda.LAUNCHES = 0
+    kv = None
+    try:
+        t0 = time.perf_counter()
+        await fab.start_all()
+        res["boot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        await fab.wait_leaders(120)
+        res["elect_s"] = time.perf_counter() - t0
+        kv = fab.client()
+        await kv.start()
+
+        load = [("w", k, value(i)) for i, k in enumerate(keys)]
+        op = len(load)
+        t0 = time.perf_counter()
+        await run_kv_ops(kv, hist, load)
+        res["load_s"] = time.perf_counter() - t0
+
+        mix = []
+        for i, r in zip(zipf_keys(rng, n_keys, n_keys),
+                        rng.random(n_keys)):
+            mix.append(("r", keys[i], None) if r < 0.5
+                       else ("w", keys[i], value(op)))
+            op += 1
+        lats = []
+        t0 = time.perf_counter()
+        await run_kv_ops(kv, hist, mix, lats)
+        res["mix_s"] = time.perf_counter() - t0
+        res["mix_ops"] = len(mix)
+        res["mix_ops_per_s"] = len(mix) / res["mix_s"]
+        res["mix_ack_ms_p50"] = pct(lats, 50)
+        res["mix_ack_ms_p99"] = pct(lats, 99)
+        log(f"[6A] {n} regions x 3 stores elected in {res['elect_s']:.3f} s; "
+            f"{n_keys} records loaded in {res['load_s']:.3f} s; YCSB-A "
+            f"{len(mix)} ops in {res['mix_s']:.3f} s "
+            f"({res['mix_ops_per_s']:.1f} ops/s, ack p50 "
+            f"{res['mix_ack_ms_p50']:.3f} ms, p99 "
+            f"{res['mix_ack_ms_p99']:.3f} ms)")
+
+        # one store stops: every region it led re-elects and takes a write
+        leader_of = await fab.wait_leaders(60)
+        dead = fab.endpoints[0]
+        lost = sorted(rid for rid, ep in leader_of.items() if ep == dead)
+        res["regions_lost"] = len(lost)
+        res["snapshots_taken_before_stop"] = snaps["taken"]
+        t0 = time.perf_counter()
+        await fab.stop_store(dead)
+        leader_of = await fab.wait_leaders(180)
+        check(dead not in leader_of.values(), "a region is still led by "
+              "the stopped store")
+        starts = [r.start_key for r in fab.regions]  # region i + 1
+        first_key = {}
+        for k in keys:
+            first_key.setdefault(bisect.bisect_right(starts, k), k)
+        ops = itertools.count(op)
+        res["failover_write_attempts"] = sum(await asyncio.gather(*(
+            write_until_acked(kv, hist, first_key[rid],
+                              lambda: value(next(ops)), loop.time() + 180)
+            for rid in lost)))
+        res["failover_s"] = time.perf_counter() - t0
+        check(res["failover_s"] < 180, "failover over 180 s")
+        log(f"[6A] store {dead} stopped: {len(lost)} regions lost their "
+            f"leader, re-elected and took a write "
+            f"({res['failover_write_attempts']} attempts, "
+            f"{res['failover_s']:.3f} s)")
+
+        # the survivors snapshot past those writes (snap_due), so the
+        # restarted store must take snapshots for them
+        t0 = time.perf_counter()
+        deadline = loop.time() + 3 * KV_SNAPSHOT_SECS
+        while True:
+            behind = 0
+            for rid in lost:
+                node = fab.stores[leader_of[rid]] \
+                    .get_region_engine(rid).node
+                if node.snapshot_executor.last_snapshot_id.index < \
+                        node.fsm_caller.last_applied_index:
+                    behind += 1
+            if not behind:
+                break
+            check(loop.time() < deadline, f"{behind} lost regions' leaders "
+                  f"never snapshotted past the failover writes")
+            await asyncio.sleep(0.2)
+        res["snapshot_wait_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        back = await fab.start_store(dead)
+        deadline = loop.time() + 180
+        stores = list(fab.stores.values())
+        while True:
+            lag = sum(1 for k in keys
+                      if len({s.raw_store.get(k) for s in stores}) != 1)
+            if not lag:
+                break
+            check(loop.time() < deadline, f"{lag} keys differ between "
+                  f"replicas 180 s after the restart")
+            await asyncio.sleep(0.5)
+        res["catchup_s"] = time.perf_counter() - t0
+        res["snapshot_installs"] = sum(
+            re.node.metrics.counters.get("install-snapshot-received", 0)
+            for re in back._regions.values())
+        check(res["snapshot_installs"] > 0, "the restarted store caught up "
+              "without a snapshot install")
+        log(f"[6A] store {dead} restarted from its directory: caught up by "
+            f"log replay and {res['snapshot_installs']} snapshot installs "
+            f"({res['catchup_s']:.3f} s)")
+
+        # read every record back through the fence; every replica holds it
+        final = [("r", k, None) for k in keys]
+        t0 = time.perf_counter()
+        await run_kv_ops(kv, hist, final)
+        res["final_read_s"] = time.perf_counter() - t0
+        got = {o.args[0]: o.result for o in hist.ops()[-len(final):]}
+        check(all(v is not None for v in got.values()), "a record is gone")
+        for ep, s in fab.stores.items():
+            bad = [k for k in keys if s.raw_store.get(k) != got[k]]
+            check(not bad, f"{len(bad)} records differ on {ep}")
+        res["device_fences"] = sum(s.read_batcher.device_fences
+                                   for s in fab.stores.values())
+    finally:
+        if kv is not None:
+            await kv.shutdown()
+        await fab.stop_all()
+        restore()
+    res["launches"] = tick.LAUNCHES  # read right after the path
+    res["fused_quorum_launches"] = quorum_cuda.LAUNCHES
+    res["engine_ticks"] = sum(e.ticks for e in fab.engines)
+    res.update(tick_hist(fab.engines))
+    res["snap_due_fired"], res["snapshots_via_snap_due"] = \
+        snaps["due"], snaps["taken"]
+    t0 = time.perf_counter()
+    report = check_history(hist)
+    res["check_s"] = time.perf_counter() - t0
+    res["history_ops"] = len(hist.ops())
+    check(report.ok, str(report)[:2000])
+    check(res["device_fences"] > 0, "no SAFE read was fenced on the device "
+          "lane")
+    check(res["snapshots_via_snap_due"] > 0, "snap_due took no snapshot")
+    if not args.cpu:
+        check(res["launches"] == res["engine_ticks"] > 0,
+              f"{res['engine_ticks']} engine ticks made {res['launches']} "
+              f"fused-tick launches (one each expected)")
+    log(f"[6A] {report}; {res['device_fences']} device fences; "
+        f"{res['snapshots_via_snap_due']} snapshots through snap_due; "
+        f"{res['launches']} fused-tick launches in {res['engine_ticks']} "
+        f"engine ticks")
+    log("[6A] " + json.dumps(res))
+    return res
+
+
+async def kv_leg_lease(args, quorum_cuda, tick, data_path) -> dict:
+    """Leg B: 3 stores x 256 regions, lease reads and hibernation."""
+    from tpuraft_torch.options import ReadOnlyOption
+    from tpuraft_torch.util.linearizability import History
+
+    n = max(4, (args.groups or 16) // 4) if args.cpu else 256
+    n_keys = n * KV_KEYS_PER_REGION
+    rng = np.random.default_rng(SEED + 12)
+    value = KVValues(rng)
+    keys = [kv_key(i, n_keys) for i in range(n_keys)]
+    fab = KVFabric(args, n, data_path,
+                   read_only_option=ReadOnlyOption.LEASE_BASED,
+                   quiesce_after_rounds=4)
+    hist, res = History(), {"regions": n, "keys": n_keys}
+    loop = asyncio.get_running_loop()
+    tick.LAUNCHES = 0  # this path's counts start here
+    quorum_cuda.LAUNCHES = 0
+    kv = None
+    try:
+        await fab.start_all()
+        t0 = time.perf_counter()
+        await fab.wait_leaders(120)
+        res["elect_s"] = time.perf_counter() - t0
+        kv = fab.client()
+        await kv.start()
+        await run_kv_ops(kv, hist, [("w", k, value(i))
+                                    for i, k in enumerate(keys)])
+        reads = [("r", keys[i], None)
+                 for i in rng.integers(0, n_keys, 2 * n_keys)]
+        lats = []
+        t0 = time.perf_counter()
+        await run_kv_ops(kv, hist, reads, lats)
+        res["read_s"] = time.perf_counter() - t0
+        res["reads"] = len(reads)
+        res["reads_per_s"] = len(reads) / res["read_s"]
+        res["read_ack_ms_p50"] = pct(lats, 50)
+        res["read_ack_ms_p99"] = pct(lats, 99)
+        loaded = {k: value(i) for i, k in enumerate(keys)}
+        bad = [o for o in hist.ops()[n_keys:]
+               if o.result != loaded[o.args[0]]]
+        check(not bad, f"{len(bad)} lease reads differ from the loaded "
+              f"values")
+        res["lease_lane_hits"] = sum(e.lease_lane_hits for e in fab.engines)
+        res["lease_lane_misses"] = sum(e.lease_lane_misses
+                                       for e in fab.engines)
+        t0 = time.perf_counter()
+        deadline = loop.time() + 30
+        while True:  # idle until every replica hibernates, or 30 s
+            q = sum(e.lane_stats()["quiescent"] for e in fab.engines)
+            if q == 3 * n or loop.time() > deadline:
+                break
+            await asyncio.sleep(0.2)
+        res["idle_s"] = time.perf_counter() - t0
+        res["quiescent_replicas"] = q
+        check(q > 0, "no group hibernated in 30 s idle")
+    finally:
+        if kv is not None:
+            await kv.shutdown()
+        await fab.stop_all()
+    res["launches"] = tick.LAUNCHES  # read right after the path
+    res["fused_quorum_launches"] = quorum_cuda.LAUNCHES
+    res["engine_ticks"] = sum(e.ticks for e in fab.engines)
+    res.update(tick_hist(fab.engines))
+    check(res["lease_lane_hits"] > 0, "no read was served off the lease "
+          "lane")
+    if not args.cpu:
+        check(res["launches"] == res["engine_ticks"] > 0,
+              f"{res['engine_ticks']} engine ticks made {res['launches']} "
+              f"fused-tick launches (one each expected)")
+    log(f"[6B] {n} regions x 3 stores, lease reads: {len(reads)} reads "
+        f"({res['reads_per_s']:.1f}/s) all equal to the loaded values, "
+        f"{res['lease_lane_hits']} lease-lane hits; "
+        f"{res['quiescent_replicas']}/{3 * n} replicas hibernated after "
+        f"{res['idle_s']:.3f} s idle")
+    log("[6B] " + json.dumps(res))
+    return res
+
+
+async def kv_leg_server(args, data_path) -> dict:
+    """Leg C: the entry point, 3 server processes over TCP on loopback,
+    each with its own --data and the engine on the card."""
+    import signal
+    import socket
+
+    from tpuraft_torch.examples.rheakv_server import (client_for,
+                                                      derive_regions)
+    from tpuraft_torch.rheakv.client import BatchingOptions, RheaKVError
+    from tpuraft_torch.rpc.tcp import TcpTransport
+
+    n, n_keys = 64, 1024
+    root = os.path.dirname(os.path.abspath(__file__))
+    socks = [socket.socket() for _ in range(3)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    stores = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    for s in socks:
+        s.close()
+    procs, logs, res = [], [], {"regions": n, "keys": n_keys}
+    transport = kv = None
+    t0 = time.perf_counter()
+    try:
+        for i, ep in enumerate(stores):
+            logs.append(open(os.path.join(data_path, f"server{i}.err"), "w+"))
+            procs.append(await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "tpuraft_torch.examples.rheakv_server",
+                "--serve", ep, "--stores", ",".join(stores),
+                "--regions", str(n), "--engine",
+                "--data", os.path.join(data_path, f"server{i}"),
+                cwd=root, stdout=asyncio.subprocess.PIPE, stderr=logs[-1]))
+
+        async def line_with(proc, word, timeout_s):
+            while True:
+                raw = await asyncio.wait_for(proc.stdout.readline(),
+                                             timeout_s)
+                if not raw:
+                    raise AssertionError(
+                        f"server exited (rc {await proc.wait()}) before "
+                        f"printing {word}")
+                if raw.startswith(word.encode()):
+                    return json.loads(raw[len(word):])
+
+        ready = [await line_with(p, "READY ", 180) for p in procs]
+        res["ready_s"] = time.perf_counter() - t0
+        check(all(r["regions"] == n for r in ready), "READY regions")
+        transport = TcpTransport()
+        kv = client_for(stores, n, transport=transport,
+                        batching=BatchingOptions(enabled=True))
+        await kv.start()
+        rng = np.random.default_rng(SEED + 13)
+        kvs = [(kv_key(i, n_keys), rng.bytes(100)) for i in range(n_keys)]
+        starts = [r.start_key for r in derive_regions(stores, n)]
+        first = {}
+        for k, v in kvs:
+            first.setdefault(bisect.bisect_right(starts, k), (k, v))
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + 120
+
+        async def first_put(k, v):  # waits out its region's election
+            while True:
+                try:
+                    if await kv.put(k, v):
+                        return
+                except RheaKVError:
+                    pass
+                check(loop.time() < deadline,
+                      f"the region of {k!r} took no write in 120 s")
+                await asyncio.sleep(0.5)
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(first_put(k, v) for k, v in first.values()))
+        res["first_writes_s"] = time.perf_counter() - t0
+        rest = [kv_ for kv_ in kvs if kv_ not in first.values()]
+        oks = await asyncio.gather(*(kv.put(k, v) for k, v in rest))
+        check(all(oks), "a put over TCP was not acknowledged")
+        got = await kv.multi_get([k for k, _ in kvs])
+        check(got == dict(kvs), "a key read back over TCP differs")
+        res["write_read_s"] = time.perf_counter() - t0
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        drained = [await line_with(p, "DRAINED ", 60) for p in procs]
+        rcs = [await asyncio.wait_for(p.wait(), 60) for p in procs]
+        check(all(d["clean"] for d in drained) and rcs == [0, 0, 0],
+              f"drain {drained}, exit codes {rcs}")
+    except BaseException:
+        for f in logs:
+            f.seek(0)
+            log(f"[6C] {f.name}:\n" + f.read()[-3000:])
+        raise
+    finally:
+        if kv is not None:
+            await kv.shutdown()
+        if transport is not None:
+            await transport.close()
+        for p in procs:
+            if p.returncode is None:
+                p.kill()
+                await p.wait()
+        for f in logs:
+            f.close()
+    log(f"[6C] 3 server processes (python -m "
+        f"tpuraft_torch.examples.rheakv_server --engine, {n} regions) "
+        f"ready in {res['ready_s']:.3f} s; {n_keys} keys written and read "
+        f"back over TCP in {res['write_read_s']:.3f} s; SIGTERM: each "
+        f"printed DRAINED {{\"clean\": true}} and exited 0")
+    return res
+
+
+async def phase_kv(args, quorum_cuda, tick) -> dict:
+    import shutil
+    import tempfile
+
+    data = tempfile.mkdtemp(prefix="tpuraft_torch_kv_")
+    try:
+        st = os.statvfs(data)
+        log(f"[6] data under {data}: {st.f_bavail * st.f_frsize / 2**30:.1f}"
+            f" GiB free of {st.f_blocks * st.f_frsize / 2**30:.1f} GiB")
+        out = {"store": await kv_leg_store(args, quorum_cuda, tick,
+                                           f"{data}/a"),
+               "lease": await kv_leg_lease(args, quorum_cuda, tick,
+                                           f"{data}/b")}
+        if args.cpu:
+            log("[6C] the server processes run on the card only (their "
+                "engine takes TickOptions' CUDA default): not rehearsed")
+        else:
+            os.makedirs(f"{data}/c")
+            out["server"] = await kv_leg_server(args, f"{data}/c")
+        return out
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -639,8 +1265,9 @@ def main() -> int:
                          "case), time nothing, stop")
     ap.add_argument("--groups", type=int, default=None,
                     help="with --cpu only: raft groups per endpoint in the "
-                         "end-to-end rehearsal (default 16; the card always "
-                         "runs 1024)")
+                         "end-to-end rehearsal and regions of the KV store "
+                         "rehearsal (default 16; the card always runs "
+                         "1024)")
     args = ap.parse_args()
     if args.groups is not None and not args.cpu:
         ap.error("--groups is for the --cpu rehearsal only")
@@ -662,11 +1289,17 @@ def main() -> int:
         return 0
     asyncio.run(phase_engine(args, torch, dev))
     e2e = asyncio.run(phase_e2e(args, torch, quorum_cuda, tick, dev))
+    kv = asyncio.run(phase_kv(args, quorum_cuda, tick))
+    paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
+             "phase6_kv_lease_reads": kv["lease"]}
 
-    def entry(name, source, replaces, launches, rows, **extra):
-        main_row = rows[-1]  # the shape the end-to-end path gives it
+    def entry(name, source, replaces, count, rows, **extra):
+        main_row = rows[-1]  # the shape the KV store's engine gives it
+        launches = {k: v[count] for k, v in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces,
+                "launches": launches["phase6_kv_store"],
+                "launches_by_path": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
@@ -675,18 +1308,21 @@ def main() -> int:
 
     kernels = [
         entry("fused_quorum", "tpuraft_torch/ops/csrc/fused_quorum.cu",
-              "tpuraft/ops/quorum_pallas.py:108", e2e["fused_quorum_launches"],
+              "tpuraft/ops/quorum_pallas.py:108", "fused_quorum_launches",
               rows, main_path="its quorum core (quorum_core.cuh) runs "
               "inside every fused_tick launch; its own entry is not "
-              "launched on the main path"),
+              "launched on the main paths"),
         entry("fused_tick", "tpuraft_torch/ops/csrc/fused_tick.cu",
-              "tpuraft/ops/quorum_pallas.py:108", e2e["launches"], tick_rows,
+              "tpuraft/ops/quorum_pallas.py:108", "launches", tick_rows,
               also_replaces="tpuraft/ops/tick.py:303 (raft_tick_outputs_jit, "
               "the XLA program around the Pallas call)",
-              engine_ticks=e2e["engine_ticks"]),
+              engine_ticks_by_path={k: v["engine_ticks"]
+                                    for k, v in paths.items()},
+              main_path="launches counts phase 6 leg A (the KV store); the "
+              "server processes of leg C count in their own processes"),
     ]
     for k in kernels:
-        log(f"[6] {k['name']}: launches {k['launches']}, match "
+        log(f"[k] {k['name']}: launches {k['launches_by_path']}, match "
             f"{'exact' if k['max_abs_err'] == 0 else k['max_abs_err']}, "
             + "; ".join(
                 f"G={r['G']} P={r['P']}: kernel "

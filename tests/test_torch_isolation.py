@@ -29,11 +29,25 @@ COPIES = [
     "core/replicator.py", "core/send_plane.py", "core/heartbeat_hub.py",
     "core/read_only.py", "core/node.py", "core/node_manager.py",
     "core/engine.py",
+    "storage/snapshot.py", "core/snapshot_executor.py",
+    "rpc/cli_messages.py", "core/cli_service.py",
+    "core/raft_group_service.py", "core/append_batcher.py", "core/lanes.py",
+    "util/heat.py", "util/metrics_http.py", "rpc/tcp.py",
+    "rheakv/metadata.py", "rheakv/kv_operation.py", "rheakv/raw_store.py",
+    "rheakv/state_machine.py", "rheakv/raft_store.py",
+    "rheakv/region_engine.py", "rheakv/region_route_table.py",
+    "rheakv/kv_service.py", "rheakv/pd_messages.py", "rheakv/pd_client.py",
+    "rheakv/store_engine.py", "rheakv/client.py", "rheakv/__init__.py",
+    "util/linearizability.py",
+    "examples/rheakv_server.py",
 ]
+# Copies whose original lies outside the JAX package.
+ORIGINALS = {"examples/rheakv_server.py": ROOT / "examples/rheakv_server.py"}
 # Modules written for the port (no original to track byte for byte).
 WRITTEN = [
     "__init__.py", "core/__init__.py", "ops/__init__.py",
     "ops/ballot.py", "ops/quorum_cuda.py", "ops/tick.py",
+    "examples/__init__.py",
 ]
 
 
@@ -89,13 +103,28 @@ def _engine_spans(tree: ast.Module) -> list[tuple[int, int]]:
 
 def _spans(src: str, rel: str) -> list[tuple[int, int]]:
     """0-based [start, end) line spans of the original where the copy
-    may differ: TickOptions, the unported storage URI branches, the two
-    lazy imports of unported modules in node.py, and the engine's device
-    half."""
+    may differ: TickOptions, the unported storage URI branches, the lazy
+    import of the unported shared meta journal in node.py, the native KV
+    engine and the multilog scheme of the store, the server's import
+    block (it carries make_regions in) and its native branches, and the
+    engine's device half."""
     tree = ast.parse(src)
     if rel == "core/engine.py":
         return _engine_spans(tree)
     out = []
+    if rel == "rheakv/__init__.py":
+        fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                  and n.name == "create_raw_kv_store")
+        assert "native_store" in ast.unparse(fn.body[1])
+        out.append((fn.body[1].lineno - 1, fn.end_lineno))
+    if rel == "examples/rheakv_server.py":
+        # the original imports make_regions from examples/rheakv_bench.py,
+        # which loads the JAX package; the copy defines it here instead
+        imports = [n for n in tree.body
+                   if isinstance(n, (ast.Import, ast.ImportFrom))]
+        derive = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                      and n.name == "derive_regions")
+        out.append((imports[0].lineno - 1, derive.lineno - 1))
     for node in ast.walk(tree):
         if rel == "options.py" and isinstance(node, ast.ClassDef) \
                 and node.name == "TickOptions":
@@ -103,13 +132,17 @@ def _spans(src: str, rel: str) -> list[tuple[int, int]]:
         if isinstance(node, ast.If):
             test = ast.unparse(node.test)
             body = ast.unparse(ast.Module(body=node.body, type_ignores=[]))
-            if rel == "storage/log_storage.py" and (
-                    "'native://'" in test or "'multilog://'" in test):
+            if (rel == "storage/log_storage.py" and (
+                    "'native://'" in test or "'multilog://'" in test)) or (
+                    rel == "rheakv/store_engine.py"
+                    and test == "self.opts.log_scheme == 'multilog'") or (
+                    rel == "examples/rheakv_server.py"
+                    and test.endswith("_kind == 'native'")):
                 # the branch body, comments included (not its `if` line)
                 out.append((node.lineno, node.body[-1].end_lineno))
             if rel == "core/node.py" and (
                     "storage.meta_multilog" in body and "'multimeta://'"
-                    in test or "core.snapshot_executor" in body):
+                    in test):
                 lazy = [s for s in node.body
                         if isinstance(s, ast.ImportFrom)]
                 out.append((lazy[0].lineno - 1, node.body[-1].end_lineno))
@@ -123,11 +156,13 @@ def test_copy_list_covers_the_package():
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_matches_original(rel):
-    orig = _rename((ORIG / rel).read_text()).splitlines()
+    orig = _rename(ORIGINALS.get(rel, ORIG / rel).read_text()).splitlines()
     copy = (PORT / rel).read_text().splitlines()
     spans = _spans("\n".join(orig), rel)
     expected = {"options.py": 1, "storage/log_storage.py": 2,
-                "core/node.py": 2, "core/engine.py": 10}.get(rel, 0)
+                "core/node.py": 1, "core/engine.py": 10,
+                "rheakv/__init__.py": 1, "rheakv/store_engine.py": 1,
+                "examples/rheakv_server.py": 3}.get(rel, 0)
     assert len(spans) == expected, spans
     for tag, i1, i2, _, _ in difflib.SequenceMatcher(
             None, orig, copy, autojunk=False).get_opcodes():
@@ -137,10 +172,14 @@ def test_copy_matches_original(rel):
                    for a, b in spans), (
             f"{rel}: copy differs from the original at lines "
             f"{i1 + 1}-{i2}:\n" + "\n".join(orig[i1:i2]))
-    if rel in ("storage/log_storage.py", "core/node.py"):
+    unported = {"storage/log_storage.py": 2, "core/node.py": 1,
+                "rheakv/__init__.py": 1, "rheakv/store_engine.py": 1,
+                "examples/rheakv_server.py": 2}
+    if rel in unported:
         # the unported branches fail loudly instead of importing modules
         # the port lacks
-        assert "\n".join(copy).count("raise NotImplementedError(") == 2
+        assert "\n".join(copy).count("raise NotImplementedError(") \
+            == unported[rel]
 
 
 def _imports(path: Path):
@@ -153,7 +192,7 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-     ROOT / "bench_torch_tick.py"], key=str),
+     ROOT / "bench_torch_tick.py", ROOT / "bench_torch_kv.py"], key=str),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_tpuraft_imports_in_source(path):
     for mod in _imports(path):

@@ -411,9 +411,10 @@ class Node:
         # snapshot subsystem
         bootstrap = LogId(0, 0)
         if opts.snapshot_uri:
-            raise NotImplementedError(
-                "snapshots are not ported to tpuraft_torch yet "
-                f"(snapshot_uri={opts.snapshot_uri!r})")
+            from tpuraft_torch.core.snapshot_executor import SnapshotExecutor
+
+            self.snapshot_executor = SnapshotExecutor(self, opts.snapshot_uri)
+            bootstrap = await self.snapshot_executor.init()
         await self.fsm_caller.init(bootstrap)
         if bootstrap.index > 0:
             self.ballot_box.last_committed_index = bootstrap.index

@@ -163,9 +163,10 @@ class TickOptions:
     # math (tpuraft.util.clock.Clock-shaped: .monotonic()/.wall()).
     # None = tpuraft.util.clock.SYSTEM (real time, zero-overhead path).
     clock: Optional[object] = None
-    # Tick backend: "torch" runs raft_tick (the fused-quorum CUDA kernel
-    # plus torch ops) on ``device``; "numpy" is the engine's host twin
-    # (_np_tick), an explicit caller choice and never a default.
+    # Tick backend: "torch" runs raft_tick on ``device`` (on CUDA one
+    # launch of the fused-tick kernel, on the CPU its plain torch
+    # version); "numpy" is the engine's host twin (_np_tick), an
+    # explicit caller choice and never a default.
     backend: str = "torch"        # "torch" | "numpy"
     # Torch device of the tick.  "cuda" needs a CUDA card: start() raises
     # without one (no silent CPU fallback); "cpu" runs the kernel's plain

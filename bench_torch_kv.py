@@ -5,7 +5,9 @@
                               [--profile] [--out FILE] [--cpu]
 
 Boots chip_smoke.py's in-process fabric (3 durable StoreEngines, one
-MultiRaftEngine each, sized by the server's rule), elects, loads 16
+MultiRaftEngine each, sized by the server's rule, every store's regions
+on one multilog journal and its data on the native KV engine, built
+first from tpuraft_torch/native), elects, loads 16
 1,000-byte records per region and runs YCSB-A over them (16 operations
 per region, 50/50 read/update, zipfian 0.99, 64 workers), as phase 6
 leg A does up to its failover.  Over the mix it records the ops/s, the
@@ -56,7 +58,8 @@ async def run(args) -> dict:
     value = cs.KVValues(rng)
     keys = [cs.kv_key(i, n_keys) for i in range(n_keys)]
     data = tempfile.mkdtemp(prefix="tpuraft_torch_kv_bench_")
-    fab = cs.KVFabric(args, n, data,
+    cs.phase_native()
+    fab = cs.KVFabric(args, n, data, native=True, eto_ms=cs.DENSITY_ETO_MS,
                       snapshot_interval_secs=args.snapshot_secs)
     snaps, restore = cs.snap_due_counter()
     res = {"regions": n, "keys": n_keys,

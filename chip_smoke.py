@@ -6,8 +6,10 @@
     python3 chip_smoke.py --cpu      # rehearsal at tiny sizes on the CPU
 
 Phases (any failure exits non-zero; none is caught):
-  1. the card (nvidia-smi name and power limit) and the build of the
-     kernel library (fused quorum and fused tick, one nvcc per source);
+  1. the card (nvidia-smi name and power limit), the build of the
+     kernel library (fused quorum and fused tick, one nvcc per source)
+     and the build of the native storage engines from
+     tpuraft_torch/native (logstore, multilog, kvstore; make, g++, zlib);
   2. the fused-quorum CUDA kernel against its plain torch version on the
      card at G=16,384 (P=8, 5 and 32), G=16,421 (P=16, ragged), the
      cluster's G=1,028 (P=8) and the KV store's G=2,048 (P=4):
@@ -29,8 +31,11 @@ Phases (any failure exits non-zero; none is caught):
      under a temporary directory, every engine tick one fused-tick
      launch:
      A. 3 stores x 1,024 pre-split regions, one MultiRaftEngine each
-        (G=2,048, P=4, 20 ms tick), file:// logs, meta and snapshots
-        (snap_due every 30 s), SAFE reads, a batching client: 16,384
+        (G=2,048, P=4, 20 ms tick), every store's regions on one multilog
+        journal and one multimeta journal, its data on the native KV
+        engine, file:// snapshots (snap_due every 30 s), a 10 s election
+        timeout with elections released over four timeouts once every
+        store is up, SAFE reads, a batching client: 16,384
         1,000-byte records loaded, YCSB-A (50/50 read/update, zipfian
         0.99) from 64 workers, one store stopped (its regions re-elect
         and take a write) and restarted from its directory (log replay
@@ -41,10 +46,18 @@ Phases (any failure exits non-zero; none is caught):
         equal to the loaded values, lease-lane hits, hibernation after
         an idle spell;
      C. the entry point: 3 `python -m tpuraft_torch.examples.rheakv_server
-        --engine` processes over TCP, 64 regions, 1,024 keys written and
-        read back, then SIGTERM: each drains clean and exits 0.
-The last three lines are the card, the kernel table and the result, the
-last two JSON.
+        --engine --store native --log-scheme multilog` processes over TCP,
+        64 regions, 1,024 keys written and read back, then SIGTERM: each
+        drains clean and exits 0;
+  7. the engine soak (the repo's headline chaos soak, BENCH_SOAK.json):
+     the port's examples/soak.py with --regions 1024 --engine, seed 1,
+     10 s election timeout, for SOAK_SECS under the default nemesis
+     (leader kills, one-way partitions, drops and delays): 3 stores of
+     1,024 regions on the multilog journal, each engine G=2,048 P=4 on
+     the card; the history linearizable, every engine tick one
+     fused-tick launch.
+The last four lines are the native libraries, the card, the kernel table
+and the result, the last two JSON.
 """
 
 from __future__ import annotations
@@ -84,9 +97,48 @@ def check(cond, msg: str) -> None:
 
 # -- phase 1: the card and the build -----------------------------------------
 
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tpuraft_torch", "native")
+
+
+def native_modules():
+    """The loaders of the three native libraries the port builds."""
+    from tpuraft_torch.rheakv import native_store
+    from tpuraft_torch.storage import multilog, native_log
+
+    return {"logstore": native_log, "multilog": multilog,
+            "kvstore": native_store}
+
+
+def phase_native() -> float:
+    """Build the native storage engines from the checkout's sources
+    (ensure_built runs make in tpuraft_torch/native) and load each."""
+    t0 = time.perf_counter()
+    for mod in native_modules().values():
+        mod.ensure_built()
+        mod._load()
+    build_s = time.perf_counter() - t0
+    log(f"[1] native engines built and loaded from {NATIVE_DIR} in "
+        f"{build_s:.3f} s")
+    return build_s
+
+
+def native_paths() -> dict:
+    """name -> resolved path of each loaded native library; each must
+    lie in tpuraft_torch/native (no TPURAFT_NATIVE_*_LIB override, no
+    library of the JAX package's native/)."""
+    paths = {}
+    for name, mod in native_modules().items():
+        check(mod._lib is not None, f"{name}: library never loaded")
+        paths[name] = os.path.realpath(mod._lib._name)
+        check(os.path.dirname(paths[name]) == os.path.realpath(NATIVE_DIR),
+              f"{name}: loaded {paths[name]}, not from {NATIVE_DIR}")
+    return paths
+
+
 def phase_card(args, torch, quorum_cuda) -> tuple[str, float | None]:
     if args.cpu:
-        log("[1] rehearsal on the CPU: no card, no build")
+        log("[1] rehearsal on the CPU: no card, no kernel build")
         return "", None
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -667,7 +719,12 @@ KV_VALUE_BYTES = 1000      # YCSB's default record: 10 fields x 100 bytes
 KV_KEYS_PER_REGION = 16
 KV_WORKERS = 64
 ZIPF_THETA = 0.99          # YCSB's zipfian constant
-KV_ETO_MS = 2000           # election timeout of the in-process stores
+KV_ETO_MS = 2000           # election timeout of leg B's stores
+# leg A's and phase 7's: the repo's own at 1,024 regions
+# (bench_region_density.py --election-timeout-ms, BENCH_SOAK.json); at 2 s
+# the event loop's lag in a failover of ~950 regions reached the timeout
+# and leadership churned
+DENSITY_ETO_MS = 10000
 # snap_due fires within leg A; at 10 s the snapshot herd of 3,072
 # replicas cut the mix from 423 to 40-57 ops/s (bench_torch_kv.py)
 KV_SNAPSHOT_SECS = 30
@@ -712,11 +769,19 @@ class KVFabric:
     fabric of phase 5), each driving all its regions from one
     MultiRaftEngine sized by the server's rule, durable under data_path."""
 
-    def __init__(self, args, n_regions: int, data_path: str, **store_kw):
+    def __init__(self, args, n_regions: int, data_path: str,
+                 native: bool = False, eto_ms: int = KV_ETO_MS,
+                 **store_kw):
+        """native: every store's regions on one multilog journal (and one
+        multimeta journal), its data on the native KV engine, as the
+        region-density configuration runs them
+        (bench_region_density.py)."""
         from tpuraft_torch.examples.rheakv_server import derive_regions
         from tpuraft_torch.rpc.transport import InProcNetwork
 
         self.args = args
+        self.native = native
+        self.eto_ms = eto_ms
         self.endpoints = [f"127.0.0.1:{6100 + i}" for i in range(3)]
         self.regions = derive_regions(self.endpoints, n_regions)
         self.n_regions = n_regions
@@ -726,7 +791,7 @@ class KVFabric:
         self.stores = {}
         self.engines = []  # every engine this fabric started, stopped too
 
-    async def start_store(self, ep: str):
+    async def start_store(self, ep: str, hold_elections: bool = False):
         from tpuraft_torch.core.engine import MultiRaftEngine
         from tpuraft_torch.options import TickOptions
         from tpuraft_torch.rheakv.store_engine import (StoreEngine,
@@ -744,17 +809,45 @@ class KVFabric:
         self.engines.append(engine)
         opts = StoreEngineOptions(
             server_id=ep, initial_regions=[r.copy() for r in self.regions],
-            data_path=self.data_path, election_timeout_ms=KV_ETO_MS,
+            data_path=self.data_path, election_timeout_ms=self.eto_ms,
             disk_budget_bytes=KV_DISK_BUDGET, **self.store_kw)
+        if self.native:
+            from tpuraft_torch.rheakv.native_store import NativeRawKVStore
+
+            opts.log_scheme = "multilog"
+            kv_dir = f"{self.data_path}/kv_{ep.replace(':', '_')}"
+            os.makedirs(self.data_path, exist_ok=True)
+            opts.raw_store_factory = lambda: NativeRawKVStore(kv_dir,
+                                                              sync=False)
         store = StoreEngine(opts, server, InProcTransport(self.net, ep),
                             multi_raft_engine=engine)
+        if hold_elections:  # start_all releases them
+            start_region = store._start_region
+
+            async def held(region):
+                re_ = await start_region(region)
+                engine.elect_deadline[re_.node._ctrl.slot] = \
+                    engine.now_ms() + 3_600_000
+                return re_
+
+            store._start_region = held
         self.stores[ep] = store
         await store.start()
         return store
 
     async def start_all(self) -> None:
+        """Boot every store with its regions' elections held, then
+        release them jittered over four election timeouts from the seed,
+        as the source configuration boots its stores
+        (bench_region_density.py:181-201); otherwise the store booted
+        first wins nearly every election."""
         for ep in self.endpoints:
-            await self.start_store(ep)
+            await self.start_store(ep, hold_elections=True)
+        rng = np.random.default_rng(SEED)
+        for engine in self.engines:
+            engine.elect_deadline[:] = engine.now_ms() + self.eto_ms // 4 \
+                + rng.integers(0, 4 * self.eto_ms, engine.G)
+            engine.mark_dirty()
 
     async def stop_store(self, ep: str) -> None:
         self.net.stop_endpoint(ep)
@@ -864,6 +957,43 @@ def snap_due_counter():
     return counts, lambda: setattr(Node, "_on_snapshot_due", orig)
 
 
+def region_report(fab, rids, most: int = 8) -> None:
+    """Log each replica's raft state for the first `most` regions of
+    rids (what a failed convergence check needs to be read)."""
+    log(f"[6A] {len(rids)} regions differ: {rids[:64]}")
+    for rid in rids[:most]:
+        for ep, s in fab.stores.items():
+            re_ = s.get_region_engine(rid)
+            node = re_.node if re_ is not None else None
+            if node is None:
+                log(f"    r{rid} {ep}: no node")
+                continue
+            lm = node.log_manager
+            log(f"    r{rid} {ep}: {node.state.name} term "
+                f"{node.current_term} leader {node.leader_id} log "
+                f"[{lm.first_log_index()}, {lm.last_log_index()}] "
+                f"committed {node.ballot_box.last_committed_index} applied "
+                f"{node.fsm_caller.last_applied_index} snapshot "
+                f"{node.snapshot_executor.last_snapshot_id.index}")
+
+
+def reconcile_walks(fab) -> list[dict]:
+    """What the disk guard's reconcile walk (_dir_usage_bytes over the
+    store's directory, every disk_reconcile_rounds health rounds) costs
+    once per live store: wall ms, files walked and bytes."""
+    from tpuraft_torch.rheakv.store_engine import _dir_usage_bytes
+
+    out = []
+    for s in fab.stores.values():
+        base = s._store_base()
+        t0 = time.perf_counter()
+        used = _dir_usage_bytes(base)
+        ms = (time.perf_counter() - t0) * 1e3
+        files = sum(len(names) for _, _, names in os.walk(base))
+        out.append({"ms": ms, "files": files, "bytes": used})
+    return out
+
+
 def tick_hist(engines) -> dict:
     out = {}
     for name in ("tick_device_ms", "tick_total_ms"):
@@ -887,7 +1017,7 @@ async def kv_leg_store(args, quorum_cuda, tick, data_path) -> dict:
     rng = np.random.default_rng(SEED + 11)
     value = KVValues(rng)
     keys = [kv_key(i, n_keys) for i in range(n_keys)]
-    fab = KVFabric(args, n, data_path,
+    fab = KVFabric(args, n, data_path, native=True, eto_ms=DENSITY_ETO_MS,
                    snapshot_interval_secs=KV_SNAPSHOT_SECS)
     hist, res, loop = History(), {"regions": n, "keys": n_keys}, \
         asyncio.get_running_loop()
@@ -940,7 +1070,9 @@ async def kv_leg_store(args, quorum_cuda, tick, data_path) -> dict:
         res["snapshots_taken_before_stop"] = snaps["taken"]
         t0 = time.perf_counter()
         await fab.stop_store(dead)
+        res["stop_s"] = time.perf_counter() - t0
         leader_of = await fab.wait_leaders(180)
+        res["reelect_s"] = time.perf_counter() - t0 - res["stop_s"]
         check(dead not in leader_of.values(), "a region is still led by "
               "the stopped store")
         starts = [r.start_key for r in fab.regions]  # region i + 1
@@ -953,6 +1085,9 @@ async def kv_leg_store(args, quorum_cuda, tick, data_path) -> dict:
                               lambda: value(next(ops)), loop.time() + 180)
             for rid in lost)))
         res["failover_s"] = time.perf_counter() - t0
+        log(f"[6A] failover of {len(lost)} regions: stop "
+            f"{res['stop_s']:.3f} s, re-election {res['reelect_s']:.3f} s, "
+            f"all in {res['failover_s']:.3f} s")
         check(res["failover_s"] < 180, "failover over 180 s")
         log(f"[6A] store {dead} stopped: {len(lost)} regions lost their "
             f"leader, re-elected and took a write "
@@ -982,12 +1117,20 @@ async def kv_leg_store(args, quorum_cuda, tick, data_path) -> dict:
         back = await fab.start_store(dead)
         deadline = loop.time() + 180
         stores = list(fab.stores.values())
+        shown = loop.time()
         while True:
-            lag = sum(1 for k in keys
-                      if len({s.raw_store.get(k) for s in stores}) != 1)
+            lag = [k for k in keys
+                   if len({s.raw_store.get(k) for s in stores}) != 1]
             if not lag:
                 break
-            check(loop.time() < deadline, f"{lag} keys differ between "
+            if loop.time() - shown >= 15:
+                shown = loop.time()
+                log(f"[6A] catching up: {len(lag)} keys differ after "
+                    f"{time.perf_counter() - t0:.1f} s")
+            if loop.time() >= deadline:
+                region_report(fab, sorted({
+                    bisect.bisect_right(starts, k) for k in lag}))
+            check(loop.time() < deadline, f"{len(lag)} keys differ between "
                   f"replicas 180 s after the restart")
             await asyncio.sleep(0.5)
         res["catchup_s"] = time.perf_counter() - t0
@@ -1012,6 +1155,10 @@ async def kv_leg_store(args, quorum_cuda, tick, data_path) -> dict:
             check(not bad, f"{len(bad)} records differ on {ep}")
         res["device_fences"] = sum(s.read_batcher.device_fences
                                    for s in fab.stores.values())
+        check(all(type(s.raw_store).__name__ == "NativeRawKVStore"
+                  for s in fab.stores.values()), "a store is not on the "
+              "native KV engine")
+        res["reconcile_walk"] = reconcile_walks(fab)
     finally:
         if kv is not None:
             await kv.shutdown()
@@ -1149,7 +1296,8 @@ async def kv_leg_server(args, data_path) -> dict:
             procs.append(await asyncio.create_subprocess_exec(
                 sys.executable, "-m", "tpuraft_torch.examples.rheakv_server",
                 "--serve", ep, "--stores", ",".join(stores),
-                "--regions", str(n), "--engine",
+                "--regions", str(n), "--engine", "--store", "native",
+                "--log-scheme", "multilog",
                 "--data", os.path.join(data_path, f"server{i}"),
                 cwd=root, stdout=asyncio.subprocess.PIPE, stderr=logs[-1]))
 
@@ -1223,7 +1371,8 @@ async def kv_leg_server(args, data_path) -> dict:
         for f in logs:
             f.close()
     log(f"[6C] 3 server processes (python -m "
-        f"tpuraft_torch.examples.rheakv_server --engine, {n} regions) "
+        f"tpuraft_torch.examples.rheakv_server --engine --store native "
+        f"--log-scheme multilog, {n} regions) "
         f"ready in {res['ready_s']:.3f} s; {n_keys} keys written and read "
         f"back over TCP in {res['write_read_s']:.3f} s; SIGTERM: each "
         f"printed DRAINED {{\"clean\": true}} and exited 0")
@@ -1254,6 +1403,74 @@ async def phase_kv(args, quorum_cuda, tick) -> dict:
         shutil.rmtree(data, ignore_errors=True)
 
 
+# -- phase 7: the engine soak ---------------------------------------------------
+
+# BENCH_SOAK.json's top-level run is --duration 600; cut to fit the call
+SOAK_SECS = 120
+SOAK_SEED = 1
+
+
+async def phase_soak(args, quorum_cuda, tick) -> dict:
+    """The port's examples/soak.py as `python -m tpuraft_torch.examples.soak
+    --regions 1024 --engine --duration SOAK_SECS --seed 1
+    --election-timeout-ms 10000` runs it (the CLI's other defaults: 3
+    stores, 6 keys, the in-process fabric), every engine on the card."""
+    import shutil
+    import tempfile
+
+    from tpuraft_torch.examples import soak
+
+    n = (args.groups or 16) if args.cpu else 1024
+    secs = 10 if args.cpu else SOAK_SECS
+    eto = 1000 if args.cpu else DENSITY_ETO_MS
+    engines = []
+    start_store = soak.SoakCluster.start_store
+
+    async def counted(self, ep):  # every engine the soak starts
+        await start_store(self, ep)
+        engines.append(self.stores[ep].multi_raft_engine)
+
+    soak.SoakCluster.start_store = counted
+    data = tempfile.mkdtemp(prefix="tpuraft_torch_soak_")
+    tick.LAUNCHES = 0  # this path's counts start here
+    quorum_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        r = await soak.run_soak(
+            secs, 3, 6, SOAK_SEED, data, False, n_regions=n, engine=True,
+            election_timeout_ms=eto,
+            device="cpu" if args.cpu else "cuda")
+    finally:
+        soak.SoakCluster.start_store = start_store
+        shutil.rmtree(data, ignore_errors=True)
+    res = {"regions": n, "duration_s": secs, "wall_s": time.perf_counter()
+           - t0, "launches": tick.LAUNCHES,  # read right after the path
+           "fused_quorum_launches": quorum_cuda.LAUNCHES,
+           "engine_ticks": sum(e.ticks for e in engines),
+           "engines_started": len(engines)}
+    res.update({k: r[k] for k in ("linearizable", "ops", "completed",
+                                  "maybe_applied", "faults", "checker_s")})
+    res.update(tick_hist(engines))
+    check(all((e.G, e.P) == engine_shape(n) for e in engines),
+          f"a soak engine is not G, P = {engine_shape(n)}")
+    check(r["linearizable"], f"the engine soak's history is not "
+          f"linearizable: {json.dumps(r)[:2000]}")
+    check(r["completed"] > 0, "the engine soak acknowledged no op")
+    check(sum(r["faults"].values()) > 0, "the nemesis injected no fault")
+    if not args.cpu:
+        check(res["launches"] == res["engine_ticks"] > 0,
+              f"{res['engine_ticks']} engine ticks made {res['launches']} "
+              f"fused-tick launches (one each expected)")
+    log(f"[7] engine soak, {n} regions x 3 stores, {secs} s: "
+        f"{r['ops']} ops ({r['completed']} acknowledged, "
+        f"{r['maybe_applied']} maybe applied), faults {r['faults']}, "
+        f"linearizable (check {r['checker_s']} s); {res['launches']} "
+        f"fused-tick launches in {res['engine_ticks']} engine ticks of "
+        f"{len(engines)} engines")
+    log("[7] " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -1282,6 +1499,7 @@ def main() -> int:
 
     dev = torch.device("cpu" if args.cpu else "cuda")
     card, build_s = phase_card(args, torch, quorum_cuda)
+    native_build_s = phase_native()
     rows = phase_kernel(args, torch, quorum_cuda, dev)
     tick_rows = phase_tick(args, torch, dev)
     if args.quick:
@@ -1290,8 +1508,11 @@ def main() -> int:
     asyncio.run(phase_engine(args, torch, dev))
     e2e = asyncio.run(phase_e2e(args, torch, quorum_cuda, tick, dev))
     kv = asyncio.run(phase_kv(args, quorum_cuda, tick))
+    soak_res = asyncio.run(phase_soak(args, quorum_cuda, tick))
     paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
-             "phase6_kv_lease_reads": kv["lease"]}
+             "phase6_kv_lease_reads": kv["lease"],
+             "phase7_soak": soak_res}
+    libs = native_paths()
 
     def entry(name, source, replaces, count, rows, **extra):
         main_row = rows[-1]  # the shape the KV store's engine gives it
@@ -1319,7 +1540,8 @@ def main() -> int:
               engine_ticks_by_path={k: v["engine_ticks"]
                                     for k, v in paths.items()},
               main_path="launches counts phase 6 leg A (the KV store); the "
-              "server processes of leg C count in their own processes"),
+              "server processes of leg C count in their own processes; "
+              "phase 7 (the engine soak) is in launches_by_path"),
     ]
     for k in kernels:
         log(f"[k] {k['name']}: launches {k['launches_by_path']}, match "
@@ -1329,6 +1551,8 @@ def main() -> int:
                 f"{(r['ms'] or 0) * 1e3:.3f} us, plain "
                 f"{(r['plain_ms'] or 0) * 1e3:.3f} us, bound "
                 f"{r['bound_ms'] * 1e3:.3f} us" for r in k["by_shape"]))
+    log(json.dumps({"native_libraries": libs,
+                    "native_build_s": native_build_s}))
     if args.cpu:
         log("rehearsal ok (cpu, tiny sizes): no device result")
         return 0

@@ -40,9 +40,17 @@ COPIES = [
     "rheakv/store_engine.py", "rheakv/client.py", "rheakv/__init__.py",
     "util/linearizability.py",
     "examples/rheakv_server.py",
+    "util/native_build.py", "storage/native_log.py", "storage/multilog.py",
+    "storage/meta_multilog.py", "rheakv/native_store.py",
+    "util/nemesis.py", "rpc/topology.py", "examples/soak.py",
 ]
 # Copies whose original lies outside the JAX package.
-ORIGINALS = {"examples/rheakv_server.py": ROOT / "examples/rheakv_server.py"}
+ORIGINALS = {"examples/rheakv_server.py": ROOT / "examples/rheakv_server.py",
+             "examples/soak.py": ROOT / "examples/soak.py"}
+# The C++ sources of the native engines: the port builds its own copy.
+NATIVE = sorted(subprocess.run(
+    ["git", "ls-files", "native"], cwd=ROOT, capture_output=True,
+    text=True, check=True).stdout.split())
 # Modules written for the port (no original to track byte for byte).
 WRITTEN = [
     "__init__.py", "core/__init__.py", "ops/__init__.py",
@@ -101,22 +109,50 @@ def _engine_spans(tree: ast.Module) -> list[tuple[int, int]]:
     return out
 
 
+def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
+    """examples/soak.py: the ``device`` keyword (run_soak's and
+    SoakCluster.__init__'s signatures, the attribute it sets, the
+    SoakCluster call that passes it on and the TickOptions that takes
+    it) and the up-front refusal of the unported modes after main()'s
+    parse_args."""
+    fns = {n.name: n for n in tree.body
+           if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    cluster = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+                   and n.name == "SoakCluster")
+    init = next(n for n in cluster.body if isinstance(n, ast.FunctionDef)
+                and n.name == "__init__")
+    out = [(fn.lineno - 1, fn.body[0].lineno - 1)
+           for fn in (fns["run_soak"], init)]
+    out += [(s.lineno - 1, s.end_lineno) for s in init.body
+            if ast.unparse(s) == "self.engine = engine"]
+    for scope, call in ((fns["run_soak"], "SoakCluster("),
+                        (cluster, "MultiRaftEngine(")):
+        out += [(n.lineno - 1, n.end_lineno) for n in ast.walk(scope)
+                if isinstance(n, ast.Assign)
+                and ast.unparse(n.value).startswith(call)]
+    out += [(s.lineno - 1, s.end_lineno) for s in fns["main"].body
+            if ast.unparse(s) == "args = ap.parse_args()"]
+    return out
+
+
 def _spans(src: str, rel: str) -> list[tuple[int, int]]:
     """0-based [start, end) line spans of the original where the copy
-    may differ: TickOptions, the unported storage URI branches, the lazy
-    import of the unported shared meta journal in node.py, the native KV
-    engine and the multilog scheme of the store, the server's import
-    block (it carries make_regions in) and its native branches, and the
-    engine's device half."""
+    may differ: TickOptions, the server's import block (it carries
+    make_regions in) and its native transport branch, the directory the
+    native loaders build in, the soak's device keyword and refusal, and
+    the engine's device half."""
     tree = ast.parse(src)
     if rel == "core/engine.py":
         return _engine_spans(tree)
+    if rel == "examples/soak.py":
+        return _soak_spans(tree)
     out = []
-    if rel == "rheakv/__init__.py":
+    if rel in ("storage/native_log.py", "storage/multilog.py",
+               "rheakv/native_store.py"):
+        # the port builds and loads tpuraft_torch/native, not native/
         fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
-                  and n.name == "create_raw_kv_store")
-        assert "native_store" in ast.unparse(fn.body[1])
-        out.append((fn.body[1].lineno - 1, fn.end_lineno))
+                  and n.name == "_native_dir")
+        out.append((fn.lineno - 1, fn.end_lineno))
     if rel == "examples/rheakv_server.py":
         # the original imports make_regions from examples/rheakv_bench.py,
         # which loads the JAX package; the copy defines it here instead
@@ -129,23 +165,10 @@ def _spans(src: str, rel: str) -> list[tuple[int, int]]:
         if rel == "options.py" and isinstance(node, ast.ClassDef) \
                 and node.name == "TickOptions":
             out.append((node.lineno - 1, node.end_lineno))
-        if isinstance(node, ast.If):
-            test = ast.unparse(node.test)
-            body = ast.unparse(ast.Module(body=node.body, type_ignores=[]))
-            if (rel == "storage/log_storage.py" and (
-                    "'native://'" in test or "'multilog://'" in test)) or (
-                    rel == "rheakv/store_engine.py"
-                    and test == "self.opts.log_scheme == 'multilog'") or (
-                    rel == "examples/rheakv_server.py"
-                    and test.endswith("_kind == 'native'")):
-                # the branch body, comments included (not its `if` line)
-                out.append((node.lineno, node.body[-1].end_lineno))
-            if rel == "core/node.py" and (
-                    "storage.meta_multilog" in body and "'multimeta://'"
-                    in test):
-                lazy = [s for s in node.body
-                        if isinstance(s, ast.ImportFrom)]
-                out.append((lazy[0].lineno - 1, node.body[-1].end_lineno))
+        if isinstance(node, ast.If) and rel == "examples/rheakv_server.py" \
+                and ast.unparse(node.test) == "transport_kind == 'native'":
+            # the branch body, comments included (not its `if` line)
+            out.append((node.lineno, node.body[-1].end_lineno))
     return out
 
 
@@ -159,10 +182,10 @@ def test_copy_matches_original(rel):
     orig = _rename(ORIGINALS.get(rel, ORIG / rel).read_text()).splitlines()
     copy = (PORT / rel).read_text().splitlines()
     spans = _spans("\n".join(orig), rel)
-    expected = {"options.py": 1, "storage/log_storage.py": 2,
-                "core/node.py": 1, "core/engine.py": 10,
-                "rheakv/__init__.py": 1, "rheakv/store_engine.py": 1,
-                "examples/rheakv_server.py": 3}.get(rel, 0)
+    expected = {"options.py": 1, "core/engine.py": 10,
+                "examples/rheakv_server.py": 2,
+                "storage/native_log.py": 1, "storage/multilog.py": 1,
+                "rheakv/native_store.py": 1, "examples/soak.py": 6}.get(rel, 0)
     assert len(spans) == expected, spans
     for tag, i1, i2, _, _ in difflib.SequenceMatcher(
             None, orig, copy, autojunk=False).get_opcodes():
@@ -172,14 +195,30 @@ def test_copy_matches_original(rel):
                    for a, b in spans), (
             f"{rel}: copy differs from the original at lines "
             f"{i1 + 1}-{i2}:\n" + "\n".join(orig[i1:i2]))
-    unported = {"storage/log_storage.py": 2, "core/node.py": 1,
-                "rheakv/__init__.py": 1, "rheakv/store_engine.py": 1,
-                "examples/rheakv_server.py": 2}
-    if rel in unported:
-        # the unported branches fail loudly instead of importing modules
-        # the port lacks
-        assert "\n".join(copy).count("raise NotImplementedError(") \
-            == unported[rel]
+    if rel == "examples/rheakv_server.py":
+        # the unported native transport fails loudly instead of
+        # importing a module the port lacks
+        assert "\n".join(copy).count("raise NotImplementedError(") == 1
+
+
+@pytest.mark.parametrize("name", NATIVE)
+def test_native_source_matches_original(name):
+    """The port builds its native engines from its own copy of the C++
+    sources, byte for byte the JAX package's."""
+    rel = Path(name).name
+    assert (PORT / "native" / rel).read_bytes() == \
+        (ROOT / name).read_bytes()
+
+
+def test_native_copy_is_complete():
+    ours = sorted(p.name for p in (PORT / "native").iterdir()
+                  if p.suffix in (".cc", ".h") or p.name == "Makefile")
+    assert ours == sorted(Path(n).name for n in NATIVE)
+
+
+def test_no_a6_refusal_remains():
+    for path in PORT.rglob("*.py"):
+        assert "ROADMAP A6" not in path.read_text(), path
 
 
 def _imports(path: Path):

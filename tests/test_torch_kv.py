@@ -3,11 +3,14 @@ package's store.
 
 The same seeded script of KV operations runs through a durable 3-store
 cluster of each package (the JAX engine on the CPU, the port's torch
-engine with ``device="cpu"``): every result and every replica's final
-scan must be equal.  The port also reopens a data directory the JAX
-package's store wrote.  The rest are port copies of the JAX package's
-engine-backed KV tests, a store whose snapshots the tick's ``snap_due``
-lane drives, and the branches the port refuses.
+engine with ``device="cpu"``), on ``file://`` logs and the memory store
+and again on the multilog journal and the native KV engine: every result
+and every replica's final scan must be equal.  The port also reopens
+data directories the JAX package's store wrote (and the JAX package the
+port's).  The rest are port copies of the JAX package's engine-backed KV
+tests, a store whose snapshots the tick's ``snap_due`` lane drives, the
+native storage behind the server and the store, and the branch the port
+still refuses.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ class KVTestCluster:
                  election_timeout_ms: int = 300,
                  multi_raft_engine_factory=None,
                  log_scheme: str = "file",
-                 store_opts: Optional[dict] = None):
+                 store_opts: Optional[dict] = None,
+                 raw_store_factory=None):
         self.net = InProcNetwork()
         self.endpoints = [f"127.0.0.1:{6000 + i}" for i in range(n_stores)]
         peers = list(self.endpoints)
@@ -67,6 +71,7 @@ class KVTestCluster:
         self.engine_factory = multi_raft_engine_factory
         self.log_scheme = log_scheme
         self.store_opts = dict(store_opts or {})
+        self.raw_store_factory = raw_store_factory  # endpoint -> RawKVStore
         self.stores: dict[str, StoreEngine] = {}
 
     async def start_all(self) -> None:
@@ -87,6 +92,9 @@ class KVTestCluster:
         )
         for k, v in self.store_opts.items():
             setattr(opts, k, v)
+        if self.raw_store_factory is not None:
+            opts.raw_store_factory = \
+                lambda: self.raw_store_factory(endpoint)
         engine = self.engine_factory() if self.engine_factory else None
         store = StoreEngine(opts, server, transport, multi_raft_engine=engine)
         self.stores[endpoint] = store
@@ -177,6 +185,24 @@ async def kv_client_cluster(cluster_cls=KVTestCluster, client_mods=None,
 async def wait_leaders(c, n_regions: int, timeout_s: float = 30.0) -> None:
     for rid in range(1, n_regions + 1):
         await c.wait_region_leader(rid, timeout_s=timeout_s)
+
+
+async def get_until_acked(kv, key: bytes, timeout_s: float = 30.0):
+    """A read retried while the region's leadership settles (EAGAIN,
+    ENEWLEADER), as a client rides out an election."""
+    from tpuraft_torch.errors import RaftError
+    from tpuraft_torch.rheakv.client import RheaKVError
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            return await kv.get(key)
+        except RheaKVError as exc:
+            if exc.status.code not in (RaftError.EAGAIN,
+                                       RaftError.ENEWLEADER) \
+                    or time.monotonic() >= deadline:
+                raise
+        await asyncio.sleep(0.1)
 
 
 async def converged_scans(c, timeout_s: float = 10.0) -> list:
@@ -309,6 +335,61 @@ async def test_kv_script_matches_jax_store(tmp_path, seed):
     assert True in cas and False in cas
 
 
+def native_storage_kw(pkg: str, root) -> dict:
+    """The region-density configuration's storage (bench_region_density.py):
+    every store's regions on one multilog journal and one multimeta
+    journal, its data on the package's native KV engine."""
+    if pkg == "jax":
+        from tpuraft.rheakv.native_store import NativeRawKVStore, ensure_built
+    else:
+        from tpuraft_torch.rheakv.native_store import (NativeRawKVStore,
+                                                       ensure_built)
+    ensure_built()
+    root.mkdir(parents=True, exist_ok=True)
+    return dict(log_scheme="multilog", raw_store_factory=lambda ep:
+                NativeRawKVStore(str(root / ("kv_" + ep.replace(":", "_")))))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+async def test_kv_script_matches_jax_store_on_native_storage(tmp_path, seed):
+    """(a) again on the native storage stack: the multilog and multimeta
+    journals under every store's regions and the native KV engine under
+    its data, in both packages: the same result for every operation and
+    the same final scan on every replica."""
+    from tests.kv_cluster import KVTestCluster as JCluster
+
+    n_regions, ops = 4, kv_script(seed)
+    results, scans = {}, {}
+    async with kv_client_cluster(
+            cluster_cls=JCluster, client_mods=jax_client_mods(),
+            **jax_cluster_kw(tmp_path / "jax", n_regions),
+            **native_storage_kw("jax", tmp_path / "jax")) as (c, kv):
+        await wait_leaders(c, n_regions)
+        results["jax"] = await run_script(kv, ops)
+        scans["jax"] = await converged_scans(c)
+        assert type(c.stores[c.endpoints[0]].raw_store).__module__ == \
+            "tpuraft.rheakv.native_store"
+    async with kv_client_cluster(
+            tmp_path=tmp_path / "torch", regions=prefix_regions(n_regions),
+            election_timeout_ms=1000,
+            multi_raft_engine_factory=torch_engine(n_regions + 4),
+            store_opts={"disk_budget_bytes": DISK_BUDGET},
+            **native_storage_kw("torch", tmp_path / "torch")) as (c, kv):
+        await wait_leaders(c, n_regions)
+        results["torch"] = await run_script(kv, ops)
+        scans["torch"] = await converged_scans(c)
+        assert type(c.stores[c.endpoints[0]].raw_store).__module__ == \
+            "tpuraft_torch.rheakv.native_store"
+    for pkg in ("jax", "torch"):  # one journal per store, no region logs
+        assert len(list((tmp_path / pkg).glob("*/mlog"))) == 3
+        assert not list((tmp_path / pkg).glob("*/r*/log"))
+    assert results["torch"] == results["jax"]
+    assert len(scans["torch"]) == len(scans["jax"]) == 3
+    for s in scans["torch"] + scans["jax"]:
+        assert s == scans["jax"][0]
+    assert scans["jax"][0] == results["jax"][-1][1]
+
+
 # -- (b) the port opens the JAX package's data directory -------------------------
 
 async def test_port_serves_a_jax_store_data_directory(tmp_path):
@@ -351,6 +432,40 @@ async def test_port_serves_a_jax_store_data_directory(tmp_path):
             .last_snapshot_id.index > 0
             for s in c.stores.values() for rid in range(1, n_regions + 1))
         assert loaded == 3 * n_regions // 2
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+async def test_native_store_data_directory_opens_across_packages(
+        tmp_path, writer):
+    """(b) on the native storage stack, both ways: one package's durable
+    store writes keys over the multilog journal, the multimeta journal
+    and the native KV engine; the other package's store reopens the same
+    directory and serves every key from every replica."""
+    from tests.kv_cluster import KVTestCluster as JCluster
+
+    n_regions = 4
+    kvs = [(bytes([i * 256 // 24]) + b"-nat%d" % i, b"val%d" % i)
+           for i in range(24)]
+    jax_kw = dict(cluster_cls=JCluster, client_mods=jax_client_mods(),
+                  **jax_cluster_kw(tmp_path, n_regions),
+                  **native_storage_kw("jax", tmp_path))
+    torch_kw = dict(tmp_path=tmp_path, regions=prefix_regions(n_regions),
+                    election_timeout_ms=1000,
+                    multi_raft_engine_factory=torch_engine(n_regions + 4),
+                    store_opts={"disk_budget_bytes": DISK_BUDGET},
+                    **native_storage_kw("torch", tmp_path))
+    first, second = (jax_kw, torch_kw) if writer == "jax" \
+        else (torch_kw, jax_kw)
+    async with kv_client_cluster(**first) as (c, kv):
+        await wait_leaders(c, n_regions)
+        assert await kv.put_list(kvs)
+        for s in await converged_scans(c):
+            assert s == sorted(kvs)
+    async with kv_client_cluster(**second) as (c, kv):
+        await wait_leaders(c, n_regions)
+        assert await kv.multi_get([k for k, _ in kvs]) == dict(kvs)
+        for s in await converged_scans(c):
+            assert s == sorted(kvs)
 
 
 # -- (c) port copies of the JAX package's engine-backed KV tests ----------------
@@ -445,14 +560,21 @@ async def test_snap_due_snapshots_an_engine_backed_store(tmp_path):
             for rid in (1, 2):
                 assert s.get_region_engine(rid).node._snapshot_timer is None
         assert await kv.put_list(kvs)
+        await converged_scans(c)  # every replica has applied the keys
         leading = [ep for ep, s in c.stores.items()
                    if s.leader_region_ids()]
         nodes = [c.stores[ep].get_region_engine(rid).node
                  for ep in leading for rid in (1, 2)]
+        # a follower region restarts from its snapshot alone until its
+        # leader's commit index reaches it: wait for snapshots past the
+        # keys, not only for a first snapshot
+        applied = [n.fsm_caller.last_applied_index for n in nodes]
         deadline = time.monotonic() + 10
         while time.monotonic() < deadline and not all(
                 n.metrics.counters["snapshots-saved"] >= 1
-                and n.log_manager.first_log_index() > 1 for n in nodes):
+                and n.log_manager.first_log_index() > 1
+                and n.snapshot_executor.last_snapshot_id.index >= a
+                for n, a in zip(nodes, applied)):
             await asyncio.sleep(0.05)
         assert all(n.metrics.counters["snapshots-saved"] >= 1
                    for n in nodes)
@@ -465,7 +587,9 @@ async def test_snap_due_snapshots_an_engine_backed_store(tmp_path):
             assert ex.last_snapshot_id.index > 0
         for k, v in kvs:
             assert store.raw_store.get(k) == v
-        assert await kv.get(kvs[0][0]) == kvs[0][1]
+        # the restart may move leadership: read once every region leads
+        await wait_leaders(c, n_regions)
+        assert await get_until_acked(kv, kvs[0][0]) == kvs[0][1]
 
 
 # -- (d) what the port refuses -----------------------------------------------------
@@ -493,14 +617,63 @@ def test_server_without_a_card_exits_with_the_engine_error(tmp_path):
 
 
 def test_server_refuses_the_native_store(tmp_path):
+    """The server copy serves ``--store native --log-scheme multilog``
+    (it refused the native KV engine until the port carried one): a
+    one-store cluster on the CPU timer plane takes a write over TCP,
+    drains on SIGTERM and leaves the native KV engine's files and the
+    shared journal in its data directory."""
+    import json
+    import signal
+
+    from tpuraft_torch.rheakv.native_store import ensure_built
+
+    ensure_built()  # the server opens the engine without building it
     ep = free_endpoint()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "tpuraft_torch.examples.rheakv_server",
-         "--serve", ep, "--stores", ep, "--data", str(tmp_path),
-         "--store", "native"],
-        cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "A6" in proc.stderr
+         "--serve", ep, "--stores", ep, "--regions", "2",
+         "--data", str(tmp_path), "--store", "native",
+         "--log-scheme", "multilog", "--eto-ms", "300"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("READY "), (line, proc.stderr.read()
+                                           if proc.poll() is not None
+                                           else "")
+
+        async def put_get():
+            from tpuraft_torch.examples.rheakv_server import client_for
+            from tpuraft_torch.rpc.tcp import TcpTransport
+
+            t = TcpTransport()
+            kv = client_for([ep], 2, transport=t)
+            await kv.start()
+            try:
+                deadline = time.monotonic() + 30
+                while not await kv.put(b"\xf0-native", b"v"):
+                    assert time.monotonic() < deadline
+                    await asyncio.sleep(0.2)
+                return await kv.get(b"\xf0-native")
+            finally:
+                await kv.shutdown()
+                await t.close()
+
+        assert asyncio.run(put_get()) == b"v"
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        drained = [ln for ln in out.splitlines()
+                   if ln.startswith("DRAINED ")]
+        assert drained and json.loads(drained[0][8:])["clean"]
+        assert proc.returncode == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    store_dir = ep.replace(":", "_")
+    assert any((tmp_path / f"kv_{store_dir}").iterdir())
+    assert (tmp_path / store_dir / "mlog").is_dir()
+    assert (tmp_path / store_dir / "meta").is_dir()
 
 
 async def test_server_refuses_the_native_transport(tmp_path):
@@ -512,18 +685,50 @@ async def test_server_refuses_the_native_transport(tmp_path):
 
 
 async def test_multilog_scheme_is_refused(tmp_path):
+    """log_scheme="multilog" (refused until the port carried the shared
+    journal) puts every region of a store on one multilog engine and one
+    multimeta journal, and a write commits through them."""
+    from tpuraft_torch.storage.meta_multilog import MultiRaftMetaStorage
+    from tpuraft_torch.storage.multilog import MultiLogStorage
+
     c = KVTestCluster(1, tmp_path=tmp_path, log_scheme="multilog",
+                      regions=prefix_regions(2),
+                      multi_raft_engine_factory=torch_engine(4),
                       store_opts={"disk_budget_bytes": DISK_BUDGET})
     try:
-        with pytest.raises(NotImplementedError, match="A6"):
-            await c.start_all()
+        await c.start_all()
+        leaders = [await c.wait_region_leader(rid) for rid in (1, 2)]
+        logs = [r.node.log_manager._storage for r in leaders]
+        assert all(isinstance(lg, MultiLogStorage) for lg in logs)
+        assert logs[0].engine is logs[1].engine
+        assert all(isinstance(r.node._meta, MultiRaftMetaStorage)
+                   for r in leaders)
+        assert await leaders[1].raft_store.put(b"\xf0-ml", b"v")
+        assert await leaders[1].raft_store.get(b"\xf0-ml") == b"v"
     finally:
         await c.stop_all()
 
 
 def test_native_kv_engine_is_refused():
-    from tpuraft_torch.rheakv import create_raw_kv_store
+    """create_raw_kv_store (which refused ``native://`` until the port
+    carried the C++ KV engine) opens the port's engine, built from and
+    loaded out of tpuraft_torch/native."""
+    import tempfile
 
-    for uri in ("native:///nowhere", "memory://"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            create_raw_kv_store(uri)
+    from tpuraft_torch.rheakv import create_raw_kv_store
+    from tpuraft_torch.rheakv import native_store
+    from tpuraft_torch.rheakv.raw_store import MemoryRawKVStore
+
+    assert isinstance(create_raw_kv_store("memory://"), MemoryRawKVStore)
+    with tempfile.TemporaryDirectory() as d:
+        s = create_raw_kv_store(f"native://{d}/kv")
+        try:
+            assert isinstance(s, native_store.NativeRawKVStore)
+            s.put(b"k", b"v")
+            assert s.get(b"k") == b"v"
+        finally:
+            s.close()
+    assert Path(native_store.lib_path()).resolve().parent == \
+        ROOT / "tpuraft_torch" / "native"
+    with pytest.raises(ValueError):
+        create_raw_kv_store("rocksdb:///nowhere")

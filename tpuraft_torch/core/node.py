@@ -353,9 +353,9 @@ class Node:
                     "multimeta:// needs a group fragment: "
                     "multimeta://<dir>#<group>")
             mdir, mgroup = rest.rsplit("#", 1)
-            raise NotImplementedError(
-                "multimeta:// meta storage is not ported to tpuraft_torch "
-                f"yet (group {mgroup!r} in {mdir!r})")
+            from tpuraft_torch.storage.meta_multilog import MultiRaftMetaStorage
+
+            self._meta = MultiRaftMetaStorage(mdir, mgroup)
         elif opts.raft_meta_uri in ("", "memory://"):
             self._meta = MemoryRaftMetaStorage()
         else:

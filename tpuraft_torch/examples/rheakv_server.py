@@ -86,9 +86,11 @@ async def serve(endpoint: str, stores: list[str], n_regions: int,
         apply_lane=apply_lane,
     )
     if store_kind == "native":
-        raise NotImplementedError(
-            "--store native (the C++ KV engine) is not ported to "
-            "tpuraft_torch yet (ROADMAP A6)")
+        from tpuraft_torch.rheakv.native_store import NativeRawKVStore
+        base = f"{data_path}/kv_{endpoint.replace(':', '_')}"
+        # the C++ engine mkdirs only the leaf — ensure the parents exist
+        os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
+        opts.raw_store_factory = lambda: NativeRawKVStore(base)
     pd_client = None
     if pd_endpoints:
         from tpuraft_torch.rheakv.pd_client import RemotePlacementDriverClient

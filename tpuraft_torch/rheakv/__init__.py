@@ -37,6 +37,6 @@ __all__ = [
 def create_raw_kv_store(uri: str) -> RawKVStore:
     """SPI factory: ``memory://`` or ``native://<dir>`` (C++ engine).
     Imported lazily so the memory path never touches ctypes."""
-    raise NotImplementedError(
-        f"create_raw_kv_store({uri!r}): the native KV engine is not ported "
-        "to tpuraft_torch yet (ROADMAP A6)")
+    from tpuraft_torch.rheakv.native_store import create_raw_kv_store as _create
+
+    return _create(uri)

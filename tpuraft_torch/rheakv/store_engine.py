@@ -1619,10 +1619,23 @@ class StoreEngine:
                           f"{self.server_id.ip}_{self.server_id.port}")
             base = f"{store_base}/r{region.id}"
             if self.opts.log_scheme == "multilog":
-                raise NotImplementedError(
-                    f"region {region.id}: log_scheme='multilog' (the native "
-                    "shared journal) is not ported to tpuraft_torch yet "
-                    "(ROADMAP A6)")
+                # one shared journal engine for every region of this
+                # store: cross-region group-commit fsync — and the SAME
+                # treatment for {term, votedFor}: per-region file://
+                # meta would pay one fsync per region per election,
+                # which is the serial-fsync herd the shared meta
+                # journal exists to absorb (storage/meta_multilog.py)
+                opts.log_uri = f"multilog://{store_base}/mlog#r{region.id}"
+                opts.raft_meta_uri = \
+                    f"multimeta://{store_base}/meta#r{region.id}"
+                if self._meta_journal is None:
+                    # store-lifetime ref: per-region opens (migration
+                    # below, node init) become refcount bumps instead
+                    # of journal reopen+fsync cycles on the loop
+                    from tpuraft_torch.storage.meta_multilog import get_journal
+
+                    self._meta_journal = get_journal(f"{store_base}/meta")
+                self._migrate_legacy_meta(store_base, base, region.id)
             else:
                 opts.log_uri = f"{self.opts.log_scheme}://{base}/log"
                 if self.opts.log_segment_max_bytes > 0:

@@ -786,11 +786,26 @@ def create_log_storage(uri: str) -> LogStorage:
         path, seg = _split_seg(uri[len("file://"):])
         return FileLogStorage(path, segment_max_bytes=seg)
     if uri.startswith("native://"):
-        raise NotImplementedError(
-            "native:// log storage is not ported to tpuraft_torch yet "
-            "(ROADMAP queue A: snapshots and the multilog/native URIs)")
+        try:
+            from tpuraft_torch.storage.native_log import NativeLogStorage
+        except ImportError as exc:
+            raise ValueError(
+                "native:// log storage requires the C++ engine "
+                "(build with `make -C native`); falling back is deliberate "
+                f"not automatic: {exc}"
+            ) from exc
+        path, seg = _split_seg(uri[len("native://"):])
+        return NativeLogStorage(path, segment_max_bytes=seg or None)
     if uri.startswith("multilog://"):
-        raise NotImplementedError(
-            "multilog:// log storage is not ported to tpuraft_torch yet "
-            "(ROADMAP queue A: snapshots and the multilog/native URIs)")
+        # shared multi-group journal engine: multilog://<dir>#<group_id>
+        # — every group of a process shares one engine and one fsync per
+        # flush round (tpuraft.storage.multilog)
+        rest = uri[len("multilog://"):]
+        if "#" not in rest:
+            raise ValueError(
+                "multilog:// needs a group fragment: multilog://<dir>#<group>")
+        dir_path, group = rest.rsplit("#", 1)
+        from tpuraft_torch.storage.multilog import MultiLogStorage
+
+        return MultiLogStorage(dir_path, group)
     raise ValueError(f"unknown log storage uri: {uri}")

@@ -8,16 +8,18 @@
 Phases (any failure exits non-zero; none is caught):
   1. the card (nvidia-smi name and power limit), the build of the
      kernel library (fused quorum and fused tick, one nvcc per source)
-     and the build of the native storage engines from
-     tpuraft_torch/native (logstore, multilog, kvstore; make, g++, zlib);
+     and the build of the native engines from tpuraft_torch/native
+     (logstore, multilog, kvstore, the epoll transport; make, g++, zlib);
   2. the fused-quorum CUDA kernel against its plain torch version on the
      card at G=16,384 (P=8, 5 and 32), G=16,421 (P=16, ragged), the
-     cluster's G=1,028 (P=8) and the KV store's G=2,048 (P=4):
-     bit-exact, and timed with CUDA events;
+     cluster's G=1,028 (P=8), the KV store's G=2,048 (P=4) and the
+     lifecycle's and leg D's G=64, 256 and 512 (P=4): bit-exact, and
+     timed with CUDA events;
   3. the fused tick (raft_tick on CUDA, one launch) against the plain
      tick on the CPU: 50 rounds of random full state at G=16,384 P=8
      and G=2,048 P=4, and rounds of edge rows at G=16,421 P=16, G=1,028
-     P=5 and G=2,048 P=4; all 11 outputs and 15 state fields bit-exact;
+     P=5, G=2,048 P=4 and G=64, 256 and 512 P=4; all 11 outputs and 15
+     state fields bit-exact;
      then the fused tick timed beside the plain tick on the card;
   4. the engine plane at 16,384 groups: MultiRaftEngine on CUDA and its
      numpy backend fed one ballot-box trace (3 voters; 5 voters with
@@ -49,15 +51,33 @@ Phases (any failure exits non-zero; none is caught):
         --engine --store native --log-scheme multilog` processes over TCP,
         64 regions, 1,024 keys written and read back, then SIGTERM: each
         drains clean and exits 0;
+     D. the PD deployment: `python -m tpuraft_torch.examples.pd_server
+        --split-keys 48` and 3 `rheakv_server --engine --transport native
+        --store native --log-scheme multilog --pd EP --regions 64`
+        processes; leg A's 16,384 records of 1,000 bytes written through a
+        PD-routed client over the native transport; PD-ordered splits
+        take every store past its engine's 128 rows, so each server's
+        engine grows on the card; every record read back equal, then
+        SIGTERM: every process drains clean and exits 0;
   7. the engine soak (the repo's headline chaos soak, BENCH_SOAK.json):
      the port's examples/soak.py with --regions 1024 --engine, seed 1,
      10 s election timeout, for SOAK_SECS under the default nemesis
      (leader kills, one-way partitions, drops and delays): 3 stores of
      1,024 regions on the multilog journal, each engine G=2,048 P=4 on
      the card; the history linearizable, every engine tick one
-     fused-tick launch.
-The last four lines are the native libraries, the card, the kernel table
-and the result, the last two JSON.
+     fused-tick launch;
+  8. the region lifecycle (BENCH_SOAK.json's run_lifecycle), in a
+     process of its own: the port's examples/soak.py with --lifecycle
+     --regions 12, seed 11, for LIFECYCLE_SECS: 4 stores (the fourth
+     empty), a lifecycle-enabled PD in-process, a shifting zipfian
+     hotspot; heat splits, cold merges and cross-store moves
+     (add-learner, catch-up, joint promote+remove), the keyspace
+     covered, no lost ack, cold groups hibernated; every engine tick one
+     fused-tick launch on the card, and some ticks with a group in a
+     joint configuration; the PD's picture logged every 10 s.
+With --cpu the server processes of legs C and D run their engines on
+the CPU. The last four lines are the native libraries, the card, the
+kernel table and the result, the last two JSON.
 """
 
 from __future__ import annotations
@@ -84,6 +104,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 # (tpuraft_torch/examples/rheakv_server.py): G = 1 << max(4, (1024 + 3)
 # .bit_length()), P = max(4, 3 + 1)
 KV_SHAPE = (2048, 4)
+# the engines of phase 8 (4 stores, P=4, sized 64 rows for the lifecycle's
+# splits) and of leg D's servers, which their splits grow from 128 rows to
+# 256 and then 512
+LIFECYCLE_SHAPES = [(64, 4), (256, 4), (512, 4)]
 
 
 def log(*a) -> None:
@@ -102,12 +126,13 @@ NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def native_modules():
-    """The loaders of the three native libraries the port builds."""
+    """The loaders of the four native libraries the port builds."""
     from tpuraft_torch.rheakv import native_store
+    from tpuraft_torch.rpc import native_tcp
     from tpuraft_torch.storage import multilog, native_log
 
     return {"logstore": native_log, "multilog": multilog,
-            "kvstore": native_store}
+            "kvstore": native_store, "transport": native_tcp}
 
 
 def phase_native() -> float:
@@ -233,7 +258,7 @@ def time_graph(torch, fn, per_graph=100, replays=20) -> float:
 def phase_kernel(args, torch, quorum_cuda, dev) -> list[dict]:
     shapes = [(37, 16), (30, 5), (64, 8), (48, 4)] if args.cpu else \
         [(16384, 8), (16384 + 37, 16), (16384, 5), (16384, 32), (1028, 8),
-         KV_SHAPE]
+         KV_SHAPE, *LIFECYCLE_SHAPES]
     rng = np.random.default_rng(SEED)
     rows = []
     for g, p in shapes:
@@ -387,7 +412,9 @@ def tick_cases(args):
             ("edge", 16384 + 37, 16, edge_tick_fields, "rows", rounds),
             ("edge", 1028, 5, edge_tick_fields, "scalars", rounds),
             ("random", g, p, rand_tick_fields, "rows", rounds),
-            ("edge", g, p, edge_tick_fields, "rows", rounds)]
+            ("edge", g, p, edge_tick_fields, "rows", rounds),
+            *(("edge", lg, lp, edge_tick_fields, "rows", rounds)
+              for lg, lp in LIFECYCLE_SHAPES)]
 
 
 def phase_tick(args, torch, dev) -> list[dict]:
@@ -439,7 +466,8 @@ def phase_tick(args, torch, dev) -> list[dict]:
 
     rows = []
     for g, p in ([(64, 8), (48, 4)] if args.cpu else
-                 [(16384, 8), (16384 + 37, 16), (1028, 8), KV_SHAPE]):
+                 [(16384, 8), (16384 + 37, 16), (1028, 8), KV_SHAPE,
+                  *LIFECYCLE_SHAPES]):
         fields = rand_tick_fields(rng, g, p)
         prm = (rng.integers(300, 1200, g), rng.integers(50, 200, g),
                rng.integers(200, 1000, g), rng.integers(0, 2, g) * 700)
@@ -1268,6 +1296,36 @@ async def kv_leg_lease(args, quorum_cuda, tick, data_path) -> dict:
     return res
 
 
+# With --cpu the server processes of legs C and D start through this
+# launcher: the caller asks for the CPU, so every engine the module makes
+# ticks there (TickOptions' device is the card by default), and every
+# store gets the explicit disk budget the in-process legs use (statvfs
+# may read a shared disk FULL, and a FULL store sheds writes).
+CPU_LAUNCHER = """\
+import runpy, sys
+from tpuraft_torch import options
+from tpuraft_torch.rheakv import store_engine
+def default(cls, **kw0):
+    init = cls.__init__
+    def __init__(self, *a, **kw):
+        init(self, *a, **{**kw0, **kw})
+    cls.__init__ = __init__
+default(options.TickOptions, device="cpu")
+default(store_engine.StoreEngineOptions, disk_budget_bytes=int(sys.argv[1]))
+sys.argv = sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def module_cmd(args, module: str) -> list:
+    """The argv that runs `python -m module` (with --cpu: its engines on
+    the CPU, its stores on KV_DISK_BUDGET)."""
+    if args.cpu:
+        return [sys.executable, "-c", CPU_LAUNCHER, str(KV_DISK_BUDGET),
+                module]
+    return [sys.executable, "-m", module]
+
+
 async def kv_leg_server(args, data_path) -> dict:
     """Leg C: the entry point, 3 server processes over TCP on loopback,
     each with its own --data and the engine on the card."""
@@ -1294,7 +1352,7 @@ async def kv_leg_server(args, data_path) -> dict:
         for i, ep in enumerate(stores):
             logs.append(open(os.path.join(data_path, f"server{i}.err"), "w+"))
             procs.append(await asyncio.create_subprocess_exec(
-                sys.executable, "-m", "tpuraft_torch.examples.rheakv_server",
+                *module_cmd(args, "tpuraft_torch.examples.rheakv_server"),
                 "--serve", ep, "--stores", ",".join(stores),
                 "--regions", str(n), "--engine", "--store", "native",
                 "--log-scheme", "multilog",
@@ -1392,12 +1450,10 @@ async def phase_kv(args, quorum_cuda, tick) -> dict:
                                            f"{data}/a"),
                "lease": await kv_leg_lease(args, quorum_cuda, tick,
                                            f"{data}/b")}
-        if args.cpu:
-            log("[6C] the server processes run on the card only (their "
-                "engine takes TickOptions' CUDA default): not rehearsed")
-        else:
-            os.makedirs(f"{data}/c")
-            out["server"] = await kv_leg_server(args, f"{data}/c")
+        os.makedirs(f"{data}/c")
+        out["server"] = await kv_leg_server(args, f"{data}/c")
+        os.makedirs(f"{data}/d")
+        out["pd"] = await kv_leg_pd(args, f"{data}/d")
         return out
     finally:
         shutil.rmtree(data, ignore_errors=True)
@@ -1471,6 +1527,432 @@ async def phase_soak(args, quorum_cuda, tick) -> dict:
     return res
 
 
+# -- phase 8: the region lifecycle ----------------------------------------------
+
+# BENCH_SOAK.json's run_lifecycle is --lifecycle --duration 300 --seed 11
+# --regions 12; the duration is cut to fit the call
+LIFECYCLE_SECS = 120
+LIFECYCLE_SEED = 11
+LIFECYCLE_REGIONS = 12
+
+
+# the child's time beyond the soak's own: start-up, the quiet tail, teardown
+LIFECYCLE_CHILD_SLACK_S = 300
+LIFECYCLE_SAMPLE_S = 10     # the soak's cluster picture, logged this often
+
+
+def phase_lifecycle(args) -> dict:
+    """Phase 8 in a process of its own (`chip_smoke.py --lifecycle-child
+    OUT`): a fresh interpreter, so the soak's one event loop (4 stores,
+    the PD and the client) shares no heap, thread or CUDA context with
+    phases 5-7. The child drives the soak, holds it to its gates and
+    writes its record to OUT; any failure there fails this phase."""
+    import gc
+    import tempfile
+    import threading
+
+    t0 = time.perf_counter()
+    gc.collect()
+    log(f"[8] before the child: this process holds "
+        f"{len(gc.get_objects())} objects (a full collection took "
+        f"{time.perf_counter() - t0:.3f} s) and "
+        f"{threading.active_count()} threads")
+    fd, out = tempfile.mkstemp(prefix="tpuraft_torch_lifecycle_",
+                               suffix=".json")
+    os.close(fd)
+    secs = 20 if args.cpu else LIFECYCLE_SECS
+    cmd = [sys.executable, os.path.abspath(__file__), "--lifecycle-child",
+           out] + (["--cpu"] if args.cpu else [])
+    try:
+        # on a timeout the child is killed and the phase fails
+        rc = subprocess.run(
+            cmd, timeout=secs + LIFECYCLE_CHILD_SLACK_S).returncode
+        check(rc == 0, f"the lifecycle child exited {rc}")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        os.unlink(out)
+
+
+def lifecycle_sample(t, cluster, pd) -> list:
+    """One row of the soak's cluster picture: [s since the start, PD
+    regions, regions with live heat, hot threshold, hot flags, heat
+    splits, merges, moves ordered, kv ops served by leaders, store
+    health evaluations scored sick, evacuations, writes shed]."""
+    stores = list(cluster.stores.values()) if cluster else []
+    row = [round(t, 1)]
+    if pd is not None:
+        st = pd.stats
+        thr = st._hot_threshold
+        row += [len(pd.fsm.regions),
+                sum(1 for e in st._stats.values() if e.heat_at > 0.0),
+                None if thr is None else round(thr, 2), st.hot_count(),
+                pd.heat_splits_ordered, pd.merges_completed,
+                pd.moves_ordered]
+    else:
+        row += [None] * 7
+    row.append(sum(s.heat.writes_noted + s.heat.reads_noted
+                   for s in stores if s.heat is not None))
+    row.append(sum(s.health.level_counts["sick"]
+                   for s in stores if s.health is not None))
+    row.append(sum(s.evacuations for s in stores))
+    row.append(sum(s.kv_processor.shed_items + s.disk_shed_items
+                   for s in stores))
+    return row
+
+
+async def lifecycle_run(args, quorum_cuda, tick) -> dict:
+    """The port's examples/soak.py as `python -m tpuraft_torch.examples.soak
+    --lifecycle --regions 12 --seed 11 --duration LIFECYCLE_SECS` runs it:
+    4 stores (the fourth starts empty), a lifecycle-enabled PD in the same
+    process, a shifting zipfian hotspot; heat splits mint groups, cold
+    merges retire them and cross-store moves run add-learner, catch-up and
+    a joint promote+remove, every engine on the card. Every
+    LIFECYCLE_SAMPLE_S the cluster picture is logged (and kept for the
+    record), with the event loop's worst lateness in that window."""
+    import functools
+    import shutil
+    import tempfile
+
+    from tpuraft_torch.examples import soak
+    from tpuraft_torch.rheakv.pd_server import PlacementDriverServer
+
+    secs = 20 if args.cpu else LIFECYCLE_SECS
+    engines, joint, cluster, pds = [], [0], [], []
+    start_store = soak.SoakCluster.start_store
+    pd_start = PlacementDriverServer.start
+
+    async def watched(self, ep):  # every engine the soak starts
+        await start_store(self, ep)
+        if not cluster:
+            cluster.append(self)
+        e = self.stores[ep].multi_raft_engine
+        engines.append(e)
+        tick_once = e.tick_once
+
+        def tick_watched():
+            # a group in a joint configuration: the launch this tick
+            # makes reads its old voter row
+            if e.old_voter_mask.any():
+                joint[0] += 1
+            return tick_once()
+
+        e.tick_once = tick_watched
+
+    async def pd_watched(self, *a, **kw):
+        pds.append(self)
+        return await pd_start(self, *a, **kw)
+
+    samples = []
+
+    async def sampler(t0):
+        late, last = 0.0, time.perf_counter()
+        while True:
+            await asyncio.sleep(0.05)
+            now = time.perf_counter()
+            late = max(late, now - last - 0.05)
+            last = now
+            if now - t0 >= LIFECYCLE_SAMPLE_S * (len(samples) + 1):
+                row = lifecycle_sample(now - t0, cluster[0] if cluster
+                                       else None, pds[0] if pds else None)
+                row.append(round(late * 1e3, 1))
+                samples.append(row)
+                late = 0.0
+                log("[8] " + json.dumps(row))
+
+    opts_cls = soak.StoreEngineOptions
+    soak.SoakCluster.start_store = watched
+    PlacementDriverServer.start = pd_watched
+    soak.StoreEngineOptions = functools.partial(
+        opts_cls, disk_budget_bytes=KV_DISK_BUDGET)
+    data = tempfile.mkdtemp(prefix="tpuraft_torch_lifecycle_")
+    tick.LAUNCHES = 0  # this path's counts start here
+    quorum_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    samp = asyncio.ensure_future(sampler(t0))
+    try:
+        r = await soak.run_lifecycle_soak(
+            secs, 4, LIFECYCLE_REGIONS, LIFECYCLE_SEED, data, False,
+            device="cpu" if args.cpu else "cuda")
+    finally:
+        samp.cancel()
+        soak.SoakCluster.start_store = start_store
+        PlacementDriverServer.start = pd_start
+        soak.StoreEngineOptions = opts_cls
+        shutil.rmtree(data, ignore_errors=True)
+    res = {"regions": LIFECYCLE_REGIONS, "duration_s": secs,
+           "wall_s": time.perf_counter() - t0,
+           "launches": tick.LAUNCHES,  # read right after the path
+           "fused_quorum_launches": quorum_cuda.LAUNCHES,
+           "engine_ticks": sum(e.ticks for e in engines),
+           "joint_ticks": joint[0], "engines_started": len(engines),
+           "engine_groups_end": [e.G for e in engines],
+           "engine_peers": [e.P for e in engines]}
+    res.update({k: r[k] for k in (
+        "lifecycle_ok", "linearizable", "ops", "errors", "regions_final",
+        "heat_splits_ordered", "merges_completed", "moves_applied",
+        "hibernated_replicas", "coverage_errors")})
+    res.update(tick_hist(engines))
+    res["samples"] = samples
+    check(len(engines) == 4, f"{len(engines)} lifecycle engines, not 4")
+    # the soak's record without its decision trail, then the samples: the
+    # end of the message is what a short tail of stderr shows
+    brief = {k: v for k, v in r.items() if k != "pd_lifecycle_view"}
+    check(r["lifecycle_ok"], "the lifecycle soak failed its gates: "
+          + json.dumps(brief, default=str) + "; samples [s, regions, "
+          "heated, threshold, hot, splits, merges, moves, kv ops, sick "
+          "rounds, evacuations, shed, loop late ms]: "
+          + json.dumps(samples))
+    check(r["heat_splits_ordered"] > 0 and r["merges_completed"] > 0
+          and r["moves_applied"] > 0 and not r["coverage_errors"],
+          "no split, merge or move, or the keyspace is not covered")
+    check(res["joint_ticks"] > 0, "no engine tick ran with a group in a "
+          "joint configuration (old_voter_mask all clear)")
+    if not args.cpu:
+        check(res["launches"] == res["engine_ticks"] > 0,
+              f"{res['engine_ticks']} engine ticks made {res['launches']} "
+              f"fused-tick launches (one each expected)")
+    log(f"[8] lifecycle soak, {LIFECYCLE_REGIONS} regions x 4 stores, "
+        f"{secs} s: {r['heat_splits_ordered']} heat splits, "
+        f"{r['merges_completed']} merges, {r['moves_applied']} moves, "
+        f"{r['regions_final']} regions at the end, {r['ops']} ops, "
+        f"linearizable per key; {res['joint_ticks']} engine ticks with a "
+        f"joint configuration; {res['launches']} fused-tick launches in "
+        f"{res['engine_ticks']} engine ticks; G at the end "
+        f"{res['engine_groups_end']}")
+    log("[8] " + json.dumps(res))
+    return res
+
+
+# -- leg D: the PD deployment over the native transport ------------------------
+
+PD_SPLIT_KEYS = 48          # tests/test_e2e_pd.py's --split-keys
+PD_REGIONS = 64             # leg C's size
+PD_RECORDS = 16384          # leg A's load
+
+
+def parse_prom(text: str) -> dict:
+    """name -> value of a Prometheus text exposition (quantile samples as
+    name_p50 and name_p99; the tpuraft_ prefix and labels dropped)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, val = line.rpartition(" ")
+        base, _, lbl = name.partition("{")
+        base = base.removeprefix("tpuraft_")
+        if 'quantile="0.5"' in lbl:
+            base += "_p50"
+        elif 'quantile="0.99"' in lbl:
+            base += "_p99"
+        out[base] = float(val)
+    return out
+
+
+async def kv_leg_pd(args, data_path) -> dict:
+    """Leg D: `python -m tpuraft_torch.examples.pd_server --split-keys 48`
+    and 3 `python -m tpuraft_torch.examples.rheakv_server --engine
+    --transport native --store native --log-scheme multilog --pd EP
+    --regions 64` processes on loopback, leg A's records written through
+    a PD-routed client over the native transport; PD-ordered splits take
+    every store past its engine's capacity, so each server's engine grows
+    (MultiRaftEngine._grow) on the card."""
+    import signal
+    import socket
+
+    from tpuraft_torch.examples.rheakv_server import derive_regions
+    from tpuraft_torch.rheakv.client import (BatchingOptions, RheaKVError,
+                                             RheaKVStore)
+    from tpuraft_torch.rheakv.pd_client import RemotePlacementDriverClient
+    from tpuraft_torch.rpc.cli_messages import DescribeMetricsRequest
+    from tpuraft_torch.rpc.native_tcp import NativeTcpTransport
+
+    n = 16 if args.cpu else PD_REGIONS
+    n_keys = 2048 if args.cpu else PD_RECORDS
+    cap, _ = engine_shape(n)  # the servers' engine capacity at boot
+    root = os.path.dirname(os.path.abspath(__file__))
+    socks = [socket.socket() for _ in range(4)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    pd_ep, *stores = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    for s in socks:
+        s.close()
+    procs, logs = [], []
+    res = {"regions": n, "records": n_keys, "split_keys": PD_SPLIT_KEYS,
+           "engine_groups_boot": cap}
+    transport = kv = pdc = None
+    t_start = time.perf_counter()
+
+    async def spawn(name, module, *argv):
+        logs.append(open(os.path.join(data_path, f"{name}.err"), "w+"))
+        procs.append(await asyncio.create_subprocess_exec(
+            *module_cmd(args, module), *argv, cwd=root,
+            stdout=asyncio.subprocess.PIPE, stderr=logs[-1]))
+        return procs[-1]
+
+    async def line_with(proc, word, timeout_s):
+        while True:
+            raw = await asyncio.wait_for(proc.stdout.readline(), timeout_s)
+            if not raw:
+                raise AssertionError(
+                    f"a server exited (rc {await proc.wait()}) before "
+                    f"printing {word}")
+            if raw.startswith(word.encode()):
+                return json.loads(raw[len(word):])
+
+    try:
+        pd_proc = await spawn(
+            "pd", "tpuraft_torch.examples.pd_server", "--serve", pd_ep,
+            "--pd", pd_ep, "--data", os.path.join(data_path, "pd"),
+            "--split-keys", str(PD_SPLIT_KEYS))
+        await line_with(pd_proc, "READY ", 180)
+        for i, ep in enumerate(stores):
+            await spawn(
+                f"server{i}", "tpuraft_torch.examples.rheakv_server",
+                "--serve", ep, "--stores", ",".join(stores), "--regions",
+                str(n), "--engine", "--transport", "native", "--store",
+                "native", "--log-scheme", "multilog", "--pd", pd_ep,
+                "--data", os.path.join(data_path, f"server{i}"))
+        ready = [await line_with(p, "READY ", 180) for p in procs[1:]]
+        check(all(r["regions"] == n for r in ready), "READY regions")
+        res["ready_s"] = time.perf_counter() - t_start
+        transport = NativeTcpTransport()
+        pdc = RemotePlacementDriverClient(transport, [pd_ep])
+        loop = asyncio.get_running_loop()
+
+        async def regions_per_store() -> dict:
+            """store -> regions the PD lists with that store a peer."""
+            counts = dict.fromkeys(stores, 0)
+            for r in await pdc.list_regions() or []:
+                for peer in r.peers:
+                    if peer in counts:
+                        counts[peer] += 1
+            return counts
+
+        deadline = loop.time() + 60
+        while min((await regions_per_store()).values()) < n:
+            check(loop.time() < deadline, "the PD did not learn every "
+                  "store's regions from heartbeats in 60 s")
+            await asyncio.sleep(0.5)
+        kv = RheaKVStore(pdc, transport, timeout_ms=10000, max_retries=30,
+                         batching=BatchingOptions(enabled=True))
+        await kv.start()
+        rng = np.random.default_rng(SEED + 17)
+        values = KVValues(rng)
+        kvs = [(kv_key(i, n_keys), values(i)) for i in range(n_keys)]
+        starts = [r.start_key for r in derive_regions(stores, n)]
+        first = {}
+        for k, v in kvs:
+            first.setdefault(bisect.bisect_right(starts, k), (k, v))
+        deadline = loop.time() + 120
+
+        async def first_put(k, v):  # waits out its region's election
+            while True:
+                try:
+                    if await kv.put(k, v):
+                        return
+                except RheaKVError:
+                    pass
+                check(loop.time() < deadline,
+                      f"the region of {k!r} took no write in 120 s")
+                await asyncio.sleep(0.5)
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(first_put(k, v) for k, v in first.values()))
+        res["first_writes_s"] = time.perf_counter() - t0
+        rest = iter([kv_ for kv_ in kvs if kv_ not in first.values()])
+        failed = []
+
+        async def writer():
+            for k, v in rest:
+                if not await kv.put(k, v):
+                    failed.append(k)
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(writer() for _ in range(KV_WORKERS)))
+        res["load_s"] = time.perf_counter() - t0
+        check(not failed, f"{len(failed)} puts not acknowledged")
+        # the PD splits every region past --split-keys, one split per
+        # region per heartbeat round, until each store holds more
+        # regions than its engine had rows at boot
+        trail, deadline = [], loop.time() + 180
+        while True:
+            counts = await regions_per_store()
+            trail.append([round(time.perf_counter() - t0, 3),
+                          min(counts.values())])
+            if min(counts.values()) > cap:
+                break
+            check(loop.time() < deadline, f"stores hold {counts} regions "
+                  f"after 180 s, not more than {cap}: {trail[-8:]}")
+            await asyncio.sleep(1.0)
+        res["past_capacity_s"] = time.perf_counter() - t0
+        # let the splits already ordered land, then read everything back
+        await asyncio.sleep(5.0)
+        counts = await regions_per_store()
+        res["regions_per_store"] = counts
+        res["split_trail"] = trail
+        t0 = time.perf_counter()
+        got = {}
+        for i in range(0, n_keys, 512):
+            got.update(await kv.multi_get([k for k, _ in kvs[i:i + 512]]))
+        res["read_back_s"] = time.perf_counter() - t0
+        bad = [k for k, v in kvs if got.get(k) != v]
+        check(not bad, f"{len(bad)} of {n_keys} records read back differ, "
+              f"first {bad[:3]}")
+        # each server's own engine, through its metrics admin RPC
+        metrics = {}
+        for ep in stores:
+            resp = await transport.call(ep, "cli_describe_metrics",
+                                        DescribeMetricsRequest(),
+                                        timeout_ms=10000)
+            m = parse_prom(resp.text)
+            metrics[ep] = {k: m.get(k) for k in (
+                "engine_ticks", "engine_groups", "engine_leaders",
+                "tick_device_ms_p50", "tick_device_ms_p99",
+                "tick_total_ms_p50", "tick_total_ms_p99")}
+        res["servers"] = metrics
+        check(all(m["engine_groups"] > cap for m in metrics.values()),
+              f"a server's engine holds no more than {cap} groups: "
+              f"{metrics}")
+        check(min(counts.values()) > cap,
+              f"regions per store {counts}, not more than {cap}")
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        drained = [await line_with(p, "DRAINED ", 60) for p in procs[1:]]
+        rcs = [await asyncio.wait_for(p.wait(), 60) for p in procs]
+        check(all(d["clean"] for d in drained) and rcs == [0, 0, 0, 0],
+              f"drain {drained}, exit codes {rcs}")
+    except BaseException:
+        for f in logs:
+            f.seek(0)
+            log(f"[6D] {f.name}:\n" + f.read()[-3000:])
+        raise
+    finally:
+        if kv is not None:
+            await kv.shutdown()
+        if transport is not None:
+            await transport.close()
+        for p in procs:
+            if p.returncode is None:
+                p.kill()
+                await p.wait()
+        for f in logs:
+            f.close()
+    res["wall_s"] = time.perf_counter() - t_start
+    log(f"[6D] PD process (--split-keys {PD_SPLIT_KEYS}) and 3 server "
+        f"processes (--engine --transport native --store native "
+        f"--log-scheme multilog --pd, {n} regions) ready in "
+        f"{res['ready_s']:.3f} s; {n_keys} records loaded in "
+        f"{res['load_s']:.3f} s; stores past {cap} regions "
+        f"{res['past_capacity_s']:.3f} s after the load began; regions per "
+        f"store {counts}; engine groups "
+        f"{[m['engine_groups'] for m in metrics.values()]}; every record "
+        f"read back through the PD-routed client; SIGTERM: the 3 stores "
+        f"drained clean and all 4 processes exited 0")
+    log("[6D] " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -1485,6 +1967,8 @@ def main() -> int:
                          "end-to-end rehearsal and regions of the KV store "
                          "rehearsal (default 16; the card always runs "
                          "1024)")
+    ap.add_argument("--lifecycle-child", metavar="OUT",
+                    help=argparse.SUPPRESS)  # phase 8's own process
     args = ap.parse_args()
     if args.groups is not None and not args.cpu:
         ap.error("--groups is for the --cpu rehearsal only")
@@ -1497,6 +1981,13 @@ def main() -> int:
         return 2
     from tpuraft_torch.ops import quorum_cuda, tick
 
+    if args.lifecycle_child:
+        if not args.cpu:
+            quorum_cuda.load()  # built by the parent; loaded outside the path
+        res = asyncio.run(lifecycle_run(args, quorum_cuda, tick))
+        with open(args.lifecycle_child, "w") as f:
+            json.dump(res, f)
+        return 0
     dev = torch.device("cpu" if args.cpu else "cuda")
     card, build_s = phase_card(args, torch, quorum_cuda)
     native_build_s = phase_native()
@@ -1509,13 +2000,16 @@ def main() -> int:
     e2e = asyncio.run(phase_e2e(args, torch, quorum_cuda, tick, dev))
     kv = asyncio.run(phase_kv(args, quorum_cuda, tick))
     soak_res = asyncio.run(phase_soak(args, quorum_cuda, tick))
+    life = phase_lifecycle(args)
     paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
              "phase6_kv_lease_reads": kv["lease"],
-             "phase7_soak": soak_res}
+             "phase7_soak": soak_res, "phase8_lifecycle": life}
     libs = native_paths()
 
     def entry(name, source, replaces, count, rows, **extra):
-        main_row = rows[-1]  # the shape the KV store's engine gives it
+        # the shape the KV store's engine gives it
+        main_row = next((r for r in rows if (r["G"], r["P"]) == KV_SHAPE),
+                        rows[-1])
         launches = {k: v[count] for k, v in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -1540,8 +2034,9 @@ def main() -> int:
               engine_ticks_by_path={k: v["engine_ticks"]
                                     for k, v in paths.items()},
               main_path="launches counts phase 6 leg A (the KV store); the "
-              "server processes of leg C count in their own processes; "
-              "phase 7 (the engine soak) is in launches_by_path"),
+              "server processes of legs C and D count in their own "
+              "processes; phase 7 (the engine soak) and phase 8 (the "
+              "region lifecycle) are in launches_by_path"),
     ]
     for k in kernels:
         log(f"[k] {k['name']}: launches {k['launches_by_path']}, match "

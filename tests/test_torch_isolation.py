@@ -43,10 +43,14 @@ COPIES = [
     "util/native_build.py", "storage/native_log.py", "storage/multilog.py",
     "storage/meta_multilog.py", "rheakv/native_store.py",
     "util/nemesis.py", "rpc/topology.py", "examples/soak.py",
+    "rpc/native_tcp.py", "rpc/fault.py", "route_table.py",
+    "rheakv/keyspace.py", "rheakv/placement.py", "rheakv/pd_server.py",
+    "examples/pd_server.py",
 ]
 # Copies whose original lies outside the JAX package.
 ORIGINALS = {"examples/rheakv_server.py": ROOT / "examples/rheakv_server.py",
-             "examples/soak.py": ROOT / "examples/soak.py"}
+             "examples/soak.py": ROOT / "examples/soak.py",
+             "examples/pd_server.py": ROOT / "examples/pd_server.py"}
 # The C++ sources of the native engines: the port builds its own copy.
 NATIVE = sorted(subprocess.run(
     ["git", "ls-files", "native"], cwd=ROOT, capture_output=True,
@@ -110,11 +114,11 @@ def _engine_spans(tree: ast.Module) -> list[tuple[int, int]]:
 
 
 def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
-    """examples/soak.py: the ``device`` keyword (run_soak's and
-    SoakCluster.__init__'s signatures, the attribute it sets, the
-    SoakCluster call that passes it on and the TickOptions that takes
-    it) and the up-front refusal of the unported modes after main()'s
-    parse_args."""
+    """examples/soak.py: the ``device`` keyword (run_soak's,
+    run_lifecycle_soak's and SoakCluster.__init__'s signatures, the
+    attribute it sets, the SoakCluster calls that pass it on and the
+    TickOptions that takes it) and the up-front refusal of the unported
+    modes after main()'s parse_args."""
     fns = {n.name: n for n in tree.body
            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
     cluster = next(n for n in tree.body if isinstance(n, ast.ClassDef)
@@ -122,10 +126,11 @@ def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
     init = next(n for n in cluster.body if isinstance(n, ast.FunctionDef)
                 and n.name == "__init__")
     out = [(fn.lineno - 1, fn.body[0].lineno - 1)
-           for fn in (fns["run_soak"], init)]
+           for fn in (fns["run_soak"], fns["run_lifecycle_soak"], init)]
     out += [(s.lineno - 1, s.end_lineno) for s in init.body
             if ast.unparse(s) == "self.engine = engine"]
     for scope, call in ((fns["run_soak"], "SoakCluster("),
+                        (fns["run_lifecycle_soak"], "SoakCluster("),
                         (cluster, "MultiRaftEngine(")):
         out += [(n.lineno - 1, n.end_lineno) for n in ast.walk(scope)
                 if isinstance(n, ast.Assign)
@@ -138,9 +143,9 @@ def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
 def _spans(src: str, rel: str) -> list[tuple[int, int]]:
     """0-based [start, end) line spans of the original where the copy
     may differ: TickOptions, the server's import block (it carries
-    make_regions in) and its native transport branch, the directory the
-    native loaders build in, the soak's device keyword and refusal, and
-    the engine's device half."""
+    make_regions in), the PD server's import of make_regions, the
+    directory the native loaders build in, the soak's device keyword
+    and refusal, and the engine's device half."""
     tree = ast.parse(src)
     if rel == "core/engine.py":
         return _engine_spans(tree)
@@ -148,7 +153,7 @@ def _spans(src: str, rel: str) -> list[tuple[int, int]]:
         return _soak_spans(tree)
     out = []
     if rel in ("storage/native_log.py", "storage/multilog.py",
-               "rheakv/native_store.py"):
+               "rheakv/native_store.py", "rpc/native_tcp.py"):
         # the port builds and loads tpuraft_torch/native, not native/
         fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
                   and n.name == "_native_dir")
@@ -161,14 +166,15 @@ def _spans(src: str, rel: str) -> list[tuple[int, int]]:
         derive = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
                       and n.name == "derive_regions")
         out.append((imports[0].lineno - 1, derive.lineno - 1))
+    if rel == "examples/pd_server.py":
+        # the same make_regions, taken from the server copy
+        out += [(n.lineno - 1, n.end_lineno) for n in tree.body
+                if isinstance(n, ast.ImportFrom)
+                and n.module == "examples.rheakv_bench"]
     for node in ast.walk(tree):
         if rel == "options.py" and isinstance(node, ast.ClassDef) \
                 and node.name == "TickOptions":
             out.append((node.lineno - 1, node.end_lineno))
-        if isinstance(node, ast.If) and rel == "examples/rheakv_server.py" \
-                and ast.unparse(node.test) == "transport_kind == 'native'":
-            # the branch body, comments included (not its `if` line)
-            out.append((node.lineno, node.body[-1].end_lineno))
     return out
 
 
@@ -183,9 +189,10 @@ def test_copy_matches_original(rel):
     copy = (PORT / rel).read_text().splitlines()
     spans = _spans("\n".join(orig), rel)
     expected = {"options.py": 1, "core/engine.py": 10,
-                "examples/rheakv_server.py": 2,
+                "examples/rheakv_server.py": 1, "examples/pd_server.py": 1,
                 "storage/native_log.py": 1, "storage/multilog.py": 1,
-                "rheakv/native_store.py": 1, "examples/soak.py": 6}.get(rel, 0)
+                "rheakv/native_store.py": 1, "rpc/native_tcp.py": 1,
+                "examples/soak.py": 8}.get(rel, 0)
     assert len(spans) == expected, spans
     for tag, i1, i2, _, _ in difflib.SequenceMatcher(
             None, orig, copy, autojunk=False).get_opcodes():
@@ -195,10 +202,11 @@ def test_copy_matches_original(rel):
                    for a, b in spans), (
             f"{rel}: copy differs from the original at lines "
             f"{i1 + 1}-{i2}:\n" + "\n".join(orig[i1:i2]))
-    if rel == "examples/rheakv_server.py":
-        # the unported native transport fails loudly instead of
-        # importing a module the port lacks
-        assert "\n".join(copy).count("raise NotImplementedError(") == 1
+    if rel in ("examples/rheakv_server.py", "examples/pd_server.py"):
+        # the servers' native transport is the port's own module, byte
+        # for byte the original's branch
+        assert "from tpuraft_torch.rpc.native_tcp import NativeTcpRpcServer" \
+            " as Server" in "\n".join(copy)
 
 
 @pytest.mark.parametrize("name", NATIVE)

@@ -8,9 +8,9 @@ and again on the multilog journal and the native KV engine: every result
 and every replica's final scan must be equal.  The port also reopens
 data directories the JAX package's store wrote (and the JAX package the
 port's).  The rest are port copies of the JAX package's engine-backed KV
-tests, a store whose snapshots the tick's ``snap_due`` lane drives, the
-native storage behind the server and the store, and the branch the port
-still refuses.
+tests, a store whose snapshots the tick's ``snap_due`` lane drives, and
+the native storage and the native transport behind the server and the
+store.
 """
 
 from __future__ import annotations
@@ -592,7 +592,7 @@ async def test_snap_due_snapshots_an_engine_backed_store(tmp_path):
         assert await get_until_acked(kv, kvs[0][0]) == kvs[0][1]
 
 
-# -- (d) what the port refuses -----------------------------------------------------
+# -- (d) the server, and what the port refuses ------------------------------------
 
 def free_endpoint() -> str:
     with socket.socket() as s:
@@ -676,12 +676,70 @@ def test_server_refuses_the_native_store(tmp_path):
     assert (tmp_path / store_dir / "meta").is_dir()
 
 
-async def test_server_refuses_the_native_transport(tmp_path):
-    from tpuraft_torch.examples.rheakv_server import serve
+def test_server_refuses_the_native_transport(tmp_path):
+    """The server copy serves ``--transport native`` (it refused the C++
+    epoll transport until the port carried it): a one-store cluster on
+    the CPU timer plane, over the native transport and the native
+    storage, takes a write from the port's native client, answers the
+    pure-Python TCP client on the same port, and drains on SIGTERM."""
+    import json
+    import signal
+    import threading
 
+    from tpuraft_torch.rheakv.native_store import ensure_built
+    from tpuraft_torch.rpc import native_tcp
+
+    ensure_built()  # the server opens the KV engine without building it
+    native_tcp.ensure_built()
     ep = free_endpoint()
-    with pytest.raises(NotImplementedError, match="A9"):
-        await serve(ep, [ep], 2, str(tmp_path), transport_kind="native")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpuraft_torch.examples.rheakv_server",
+         "--serve", ep, "--stores", ep, "--regions", "2",
+         "--data", str(tmp_path), "--transport", "native",
+         "--store", "native", "--log-scheme", "multilog", "--eto-ms",
+         "300"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    # a server that hangs before READY must not hang the test's readline
+    watchdog = threading.Timer(120, proc.kill)
+    watchdog.start()
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("READY "), (line, proc.stderr.read()
+                                           if proc.poll() is not None
+                                           else "")
+
+        async def put_get():
+            from tpuraft_torch.examples.rheakv_server import client_for
+            from tpuraft_torch.rpc.tcp import TcpTransport
+
+            got = []
+            for t in (native_tcp.NativeTcpTransport(), TcpTransport()):
+                kv = client_for([ep], 2, transport=t)
+                await kv.start()
+                try:
+                    deadline = time.monotonic() + 30
+                    while not await kv.put(b"\xf0-wire", b"v"):
+                        assert time.monotonic() < deadline
+                        await asyncio.sleep(0.2)
+                    got.append(await kv.get(b"\xf0-wire"))
+                finally:
+                    await kv.shutdown()
+                    await t.close()
+            return got
+
+        assert asyncio.run(put_get()) == [b"v", b"v"]
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        drained = [ln for ln in out.splitlines()
+                   if ln.startswith("DRAINED ")]
+        assert drained and json.loads(drained[0][8:])["clean"]
+        assert proc.returncode == 0
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 async def test_multilog_scheme_is_refused(tmp_path):

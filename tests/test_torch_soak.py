@@ -2,8 +2,9 @@
 CPU: the port copy of tests/test_examples.py's short soak, the engine
 soak (every store a torch MultiRaftEngine ticking on the CPU over the
 shared multilog journal, multimeta and quiescence) proven linearizable
-under the default nemesis, the card as the engines' default device, and
-the up-front refusal of the modes whose modules are not ported."""
+under the default nemesis, the lifecycle, hotspot and native-transport
+soaks, the card as the engines' default device, and the up-front
+refusal of the modes whose storage fault plane is not ported."""
 
 from __future__ import annotations
 
@@ -65,24 +66,95 @@ async def test_engine_soak_on_the_cpu_is_linearizable(tmp_path,
     assert not multilog._engines  # every store released its engine
 
 
+# the lifecycle soak's duration on the CPU: the shortest that passed
+# lifecycle_ok in every one of 10 trials run 6 at a time
+LIFECYCLE_SECS = 10
+
+
+async def test_lifecycle_soak_on_the_cpu(tmp_path, monkeypatch):
+    """--lifecycle --regions 12 --seed 11 for LIFECYCLE_SECS: 4 stores
+    (the fourth empty), each driving its regions from one port engine on
+    the CPU, and a lifecycle-enabled PD in the same process under a
+    shifting zipfian hotspot: heat splits, cold merges and cross-store
+    moves all happen, the keyspace stays covered, no acknowledged write
+    is lost and the cold groups hibernate."""
+    from tests.test_torch_kv import DISK_BUDGET
+
+    monkeypatch.setattr(soak, "StoreEngineOptions", functools.partial(
+        soak.StoreEngineOptions, disk_budget_bytes=DISK_BUDGET))
+    r = await asyncio.wait_for(soak.run_lifecycle_soak(
+        LIFECYCLE_SECS, 4, 12, 11, str(tmp_path), False, device="cpu"), 110)
+    assert r["lifecycle_ok"], r
+    assert r["heat_splits_ordered"] > 0 and r["merges_completed"] > 0
+    assert r["moves_applied"] > 0 and r["coverage_errors"] == []
+    assert r["linearizable"] and r["hibernate_ok"], r
+
+
+async def test_hotspot_soak_on_the_cpu(tmp_path, monkeypatch):
+    """--hotspot --regions 24 --seed 7 for 10 s: a PD in the same
+    process ranks the 3 regions of a zipfian hotspot top-K and flags
+    the shifted hot set within 3 heartbeat rounds; the history per key
+    stays linearizable."""
+    from tests.test_torch_kv import DISK_BUDGET
+
+    monkeypatch.setattr(soak, "StoreEngineOptions", functools.partial(
+        soak.StoreEngineOptions, disk_budget_bytes=DISK_BUDGET))
+    r = await asyncio.wait_for(soak.run_hotspot_soak(
+        10, 3, 24, 7, str(tmp_path), False), 110)
+    assert r["hotspot_ok"] and r["phase_a_topk_ok"], r
+    assert r["linearizable"], r
+
+
+async def test_native_transport_soak_on_the_cpu(tmp_path, monkeypatch):
+    """--transport native for 8 s: 3 stores over the port's C++ epoll
+    transport and native KV engines, faults injected at each store's
+    transport, the history linearizable."""
+    from tests.test_torch_kv import DISK_BUDGET
+
+    monkeypatch.setattr(soak, "StoreEngineOptions", functools.partial(
+        soak.StoreEngineOptions, disk_budget_bytes=DISK_BUDGET))
+    r = await asyncio.wait_for(soak.run_soak(
+        duration_s=8, n_stores=3, n_keys=4, seed=3,
+        data_path=str(tmp_path), verbose=False, transport="native"), 110)
+    assert r["linearizable"], r
+    assert r["ops"] > 50 and sum(r["faults"].values()) >= 2, r
+
+
 def test_the_card_is_the_default_device():
     """The soak's engines tick on the card unless the caller passes
     device="cpu"; the CLI has no switch for it."""
-    for fn in (soak.run_soak, soak.SoakCluster.__init__):
+    for fn in (soak.run_soak, soak.run_lifecycle_soak,
+               soak.SoakCluster.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     c = soak.SoakCluster(3, "", n_regions=2, engine=True)
     assert c.device == "cuda"
 
 
-_UNPORTED = [["--transport", "native"], ["--power-loss"], ["--gray"],
-             ["--disk-pressure"], ["--hotspot"], ["--lifecycle"]]
+def test_lifecycle_soak_without_a_card_exits_with_the_engine_error(
+        tmp_path):
+    """--lifecycle runs every engine on the card: without one the CLI
+    exits non-zero with the engine's error, and prints no result."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the soak would run")
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpuraft_torch.examples.soak", "--lifecycle",
+         "--duration", "1", "--data", str(tmp_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "lifecycle_ok" not in proc.stdout
+
+
+_UNPORTED = [["--power-loss"], ["--gray"], ["--disk-pressure"]]
 
 
 @pytest.mark.parametrize("flags", _UNPORTED, ids=lambda f: f[0].lstrip("-"))
 def test_unported_modes_are_refused_up_front(monkeypatch, capsys, flags):
-    """Each mode that reaches an unported module (fault planes, native
-    transport, placement driver) is refused by the CLI before any store
-    boots or any directory is made."""
+    """Each mode that reaches the unported storage fault plane is
+    refused by the CLI before any store boots or any directory is
+    made."""
     def boot(*a, **kw):
         raise AssertionError("booted a refused mode")
 

@@ -66,9 +66,8 @@ async def serve(endpoint: str, stores: list[str], n_regions: int,
         # readiness probe really gates client traffic
         await asyncio.sleep(boot_delay_s)
     if transport_kind == "native":
-        raise NotImplementedError(
-            "--transport native (the C++ epoll transport) is not ported to "
-            "tpuraft_torch yet (ROADMAP A9)")
+        from tpuraft_torch.rpc.native_tcp import NativeTcpRpcServer as Server
+        from tpuraft_torch.rpc.native_tcp import NativeTcpTransport as Transport
     else:
         from tpuraft_torch.rpc.tcp import TcpRpcServer as Server
         from tpuraft_torch.rpc.tcp import TcpTransport as Transport

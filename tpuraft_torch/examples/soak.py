@@ -1907,7 +1907,7 @@ async def run_hotspot_soak(duration_s: float, n_stores: int,
 
 async def run_lifecycle_soak(duration_s: float, n_stores: int,
                              n_regions: int, seed: int, data_path: str,
-                             verbose: bool) -> dict:
+                             verbose: bool, device: str = "cuda") -> dict:
     """Region-lifecycle soak (ISSUE 20): a lifecycle-enabled PD runs
     the full actuation loop against a live fleet under a SHIFTING
     zipfian hotspot.
@@ -1934,7 +1934,7 @@ async def run_lifecycle_soak(duration_s: float, n_stores: int,
     c = SoakCluster(n_stores, data_path, n_regions=n_regions,
                     engine=True, pd_endpoint="127.0.0.1:7200",
                     heartbeat_interval_ms=hb_ms,
-                    quiesce_after_rounds=3)
+                    quiesce_after_rounds=3, device=device)
     # heat splits mint groups mid-run: leave engine [G] headroom
     c.engine_group_cap = 1 << max(6, (n_regions * 2 + 8).bit_length())
     home = c.endpoints[:3]
@@ -2261,16 +2261,11 @@ def main() -> None:
                          "group hibernation")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
-    # modes whose fault planes, native transport or placement driver
-    # (rpc/fault.py, storage/fault.py, rpc/native_tcp.py,
-    # rheakv/pd_server.py, placement.py, keyspace.py) are not ported:
+    # modes whose storage fault plane (storage/fault.py) is not ported:
     # refused before anything boots
     unported = [flag for flag, on in (
-        ("--transport native", args.transport == "native"),
         ("--power-loss", args.power_loss), ("--gray", args.gray),
-        ("--disk-pressure", args.disk_pressure),
-        ("--hotspot", args.hotspot), ("--lifecycle", args.lifecycle))
-        if on]
+        ("--disk-pressure", args.disk_pressure)) if on]
     if unported:
         ap.error(f"{', '.join(unported)}: not ported to tpuraft_torch yet "
                  "(ROADMAP A9)")

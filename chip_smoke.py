@@ -74,10 +74,26 @@ Phases (any failure exits non-zero; none is caught):
      (add-learner, catch-up, joint promote+remove), the keyspace
      covered, no lost ack, cold groups hibernated; every engine tick one
      fused-tick launch on the card, and some ticks with a group in a
-     joint configuration; the PD's picture logged every 10 s.
-With --cpu the server processes of legs C and D run their engines on
-the CPU. The last four lines are the native libraries, the card, the
-kernel table and the result, the last two JSON.
+     joint configuration; the PD's picture logged every 10 s;
+  9. the supervised fleet: the port's proc_supervisor (ProcSupervisor
+     over 3 StoreProcess children from server_argv: `rheakv_server
+     --engine --transport native --store native --log-scheme multilog
+     --regions 64`, engines of G=128 P=4 on the card); leg C's 1,024 keys,
+     then a 50/50 read/update mix from 8 workers; the store that leads
+     region 1 is SIGKILLed and the supervisor's restart brings it back
+     READY from its directory; every acknowledged write read back, the
+     history linearizable, every server's engine ticked (its metrics
+     RPC), SIGTERM drains every process clean with exit 0;
+ 10. the storage fault plane, in a process of its own started beside
+     phases 2-5 (it needs no card) and read after phase 9: the port's
+     examples/soak.py with --disk-pressure --power-loss, seed 2, for
+     FAULT_SOAK_SECS (BENCH_SOAK.json's run_disk_pressure), host only:
+     ChaosDir quotas, ENOSPC bursts and power-loss crash images under
+     the default nemesis; exit 0, disk_pressure_ok, linearizable, and
+     power-loss crashes.
+With --cpu the server processes of legs C and D and of phase 9 run
+their engines on the CPU. The last four lines are the native libraries,
+the card, the kernel table and the result, the last two JSON.
 """
 
 from __future__ import annotations
@@ -1462,7 +1478,8 @@ async def phase_kv(args, quorum_cuda, tick) -> dict:
 # -- phase 7: the engine soak ---------------------------------------------------
 
 # BENCH_SOAK.json's top-level run is --duration 600; cut to fit the call
-SOAK_SECS = 120
+# with phases 9 and 10 (120 s until they came)
+SOAK_SECS = 35
 SOAK_SEED = 1
 
 
@@ -1749,6 +1766,24 @@ def parse_prom(text: str) -> dict:
     return out
 
 
+async def server_metrics(transport, stores) -> dict:
+    """endpoint -> its engine's ticks, groups, leaders and tick times,
+    through the server's metrics admin RPC (legs D and phase 9)."""
+    from tpuraft_torch.rpc.cli_messages import DescribeMetricsRequest
+
+    out = {}
+    for ep in stores:
+        resp = await transport.call(ep, "cli_describe_metrics",
+                                    DescribeMetricsRequest(),
+                                    timeout_ms=10000)
+        m = parse_prom(resp.text)
+        out[ep] = {k: m.get(k) for k in (
+            "engine_ticks", "engine_groups", "engine_leaders",
+            "tick_device_ms_p50", "tick_device_ms_p99",
+            "tick_total_ms_p50", "tick_total_ms_p99")}
+    return out
+
+
 async def kv_leg_pd(args, data_path) -> dict:
     """Leg D: `python -m tpuraft_torch.examples.pd_server --split-keys 48`
     and 3 `python -m tpuraft_torch.examples.rheakv_server --engine
@@ -1764,7 +1799,6 @@ async def kv_leg_pd(args, data_path) -> dict:
     from tpuraft_torch.rheakv.client import (BatchingOptions, RheaKVError,
                                              RheaKVStore)
     from tpuraft_torch.rheakv.pd_client import RemotePlacementDriverClient
-    from tpuraft_torch.rpc.cli_messages import DescribeMetricsRequest
     from tpuraft_torch.rpc.native_tcp import NativeTcpTransport
 
     n = 16 if args.cpu else PD_REGIONS
@@ -1899,18 +1933,7 @@ async def kv_leg_pd(args, data_path) -> dict:
         bad = [k for k, v in kvs if got.get(k) != v]
         check(not bad, f"{len(bad)} of {n_keys} records read back differ, "
               f"first {bad[:3]}")
-        # each server's own engine, through its metrics admin RPC
-        metrics = {}
-        for ep in stores:
-            resp = await transport.call(ep, "cli_describe_metrics",
-                                        DescribeMetricsRequest(),
-                                        timeout_ms=10000)
-            m = parse_prom(resp.text)
-            metrics[ep] = {k: m.get(k) for k in (
-                "engine_ticks", "engine_groups", "engine_leaders",
-                "tick_device_ms_p50", "tick_device_ms_p99",
-                "tick_total_ms_p50", "tick_total_ms_p99")}
-        res["servers"] = metrics
+        metrics = res["servers"] = await server_metrics(transport, stores)
         check(all(m["engine_groups"] > cap for m in metrics.values()),
               f"a server's engine holds no more than {cap} groups: "
               f"{metrics}")
@@ -1953,6 +1976,385 @@ async def kv_leg_pd(args, data_path) -> dict:
     return res
 
 
+# -- phase 9: the supervised fleet --------------------------------------------
+
+FLEET_REGIONS = 64          # leg C's size: engines of G=128, P=4
+FLEET_KEYS = 1024           # leg C's load
+FLEET_WORKERS = 8
+FLEET_MIX_S = 10            # the mix before the SIGKILL, and after READY
+FLEET_OP_TIMEOUT_S = 6.0    # an op past it stays pending (proc_supervisor)
+FLEET_READY_S = 180         # a store's boot on the card: torch, CUDA, replay
+
+
+def fleet_argv(args, ep, stores, n, data) -> list:
+    """One store's command line from the port's server_argv (--engine
+    --transport native --store native --log-scheme multilog, n regions);
+    with --cpu its `-m MODULE` head goes through module_cmd's launcher."""
+    from tpuraft_torch.examples.proc_supervisor import server_argv
+
+    argv = server_argv(ep, stores, n, data, transport="native",
+                       store="native", log_scheme="multilog", engine=True,
+                       metrics_port=None)
+    check(argv[1:3] == ["-m", "tpuraft_torch.examples.rheakv_server"],
+          f"server_argv's head is {argv[:3]}")
+    return module_cmd(args, argv[2]) + argv[3:]
+
+
+async def phase_fleet(args) -> dict:
+    """Phase 9: the supervised, SIGKILLed fleet, as proc_supervisor's
+    --soak runs it but at leg C's size: ProcSupervisor over 3
+    StoreProcess children (`rheakv_server --engine --transport native
+    --store native --log-scheme multilog --regions 64`, each engine on
+    the card), leg C's 1,024 keys loaded, then a 50/50 read/update mix
+    from 8 workers; the store that leads region 1 is SIGKILLed, the
+    supervisor restarts it from its directory and it prints READY again.
+    Every acknowledged write is read back, the history is linearizable,
+    every server's engine ticked, and SIGTERM drains every process."""
+    import shutil
+    import tempfile
+
+    from tpuraft_torch.examples.proc_supervisor import (ProcSupervisor,
+                                                        StoreProcess,
+                                                        free_endpoints)
+    from tpuraft_torch.examples.rheakv_server import (client_for,
+                                                      derive_regions)
+    from tpuraft_torch.rheakv.client import RheaKVError
+    from tpuraft_torch.rpc.native_tcp import NativeTcpTransport
+    from tpuraft_torch.util.linearizability import History, check_history
+
+    n = 8 if args.cpu else FLEET_REGIONS
+    n_keys = 128 if args.cpu else FLEET_KEYS
+    mix_s = 5 if args.cpu else FLEET_MIX_S
+    data = tempfile.mkdtemp(prefix="tpuraft_torch_fleet_")
+    stores = free_endpoints(3)
+    sup = ProcSupervisor([StoreProcess(ep, fleet_argv(args, ep, stores, n,
+                                                      data))
+                          for ep in stores])
+    res = {"regions": n, "keys": n_keys, "workers": FLEET_WORKERS}
+    transport = kv = None
+    loop = asyncio.get_running_loop()
+    hist = History()
+    t_start = time.perf_counter()
+    try:
+        await sup.start(ready_timeout_s=FLEET_READY_S)
+        sup.supervise()
+        res["ready_s"] = time.perf_counter() - t_start
+        transport = NativeTcpTransport()
+        kv = client_for(stores, n, transport=transport, max_retries=12)
+        await kv.start()
+        starts = [r.start_key for r in derive_regions(stores, n)]
+
+        def region_of(key: bytes) -> int:
+            return bisect.bisect_right(starts, key)
+
+        async def put_until_acked(cid, key, val, deadline) -> float:
+            """A write retried (each attempt its own op in the history)
+            until it is acknowledged; returns when it was."""
+            while True:
+                tok = hist.invoke(cid, "w", (key, val))
+                try:
+                    if await asyncio.wait_for(kv.put(key, val),
+                                              FLEET_OP_TIMEOUT_S) is True:
+                        hist.complete(tok, True)
+                        return time.perf_counter()
+                except (RheaKVError, asyncio.TimeoutError):
+                    pass
+                check(loop.time() < deadline,
+                      f"region {region_of(key)} took no write")
+                await asyncio.sleep(0.2)
+
+        # the load: leg C's keys and values, each region's first write
+        # waiting out its election
+        rng = np.random.default_rng(SEED + 13)
+        kvs = [(kv_key(i, n_keys), rng.bytes(100)) for i in range(n_keys)]
+        first = {}
+        for k, v in kvs:
+            first.setdefault(region_of(k), (k, v))
+        t0 = time.perf_counter()
+        deadline = loop.time() + 120
+        await asyncio.gather(*(put_until_acked(-1, k, v, deadline)
+                               for k, v in first.values()))
+        rest = [kv_ for kv_ in kvs if kv_ not in first.values()]
+        await asyncio.gather(*(put_until_acked(-1, k, v, deadline)
+                               for k, v in rest))
+        res["load_s"] = time.perf_counter() - t0
+        # key -> its last acknowledged value, and the values of its
+        # writes never acknowledged (each may or may not have applied)
+        acked = dict(kvs)
+        unacked = {k: set() for k, _ in kvs}
+
+        # the mix: worker w updates only its own keys (one writer a key,
+        # so the last write of each is defined) and reads any key
+        stop = asyncio.Event()
+        lats, counts = [], {"ops": 0, "acked": 0, "pending": 0}
+
+        async def worker(w):
+            wrng = np.random.default_rng(SEED + 100 + w)
+            own = [k for i, (k, _) in enumerate(kvs)
+                   if i % FLEET_WORKERS == w]
+            seq = 0
+            while not stop.is_set():
+                counts["ops"] += 1
+                if wrng.random() < 0.5:
+                    seq += 1
+                    key = own[int(wrng.integers(len(own)))]
+                    val = (b"w%d-%d " % (w, seq)).ljust(100, b".")
+                    tok = hist.invoke(w, "w", (key, val))
+                    t0 = time.perf_counter()
+                    try:
+                        ok = await asyncio.wait_for(kv.put(key, val),
+                                                    FLEET_OP_TIMEOUT_S)
+                    except (RheaKVError, asyncio.TimeoutError):
+                        ok = None
+                    if ok is True:
+                        hist.complete(tok, True)
+                        lats.append(time.perf_counter() - t0)
+                        acked[key] = val
+                        counts["acked"] += 1
+                    else:
+                        unacked[key].add(val)
+                        counts["pending"] += 1
+                else:
+                    key = kvs[int(wrng.integers(n_keys))][0]
+                    tok = hist.invoke(w, "r", (key,))
+                    t0 = time.perf_counter()
+                    try:
+                        got = await asyncio.wait_for(kv.get(key),
+                                                     FLEET_OP_TIMEOUT_S)
+                    except (RheaKVError, asyncio.TimeoutError):
+                        counts["pending"] += 1
+                    else:
+                        hist.complete(tok, got)
+                        lats.append(time.perf_counter() - t0)
+                        counts["acked"] += 1
+                await asyncio.sleep(0.003)
+
+        t_mix = time.perf_counter()
+        workers = [asyncio.ensure_future(worker(w))
+                   for w in range(FLEET_WORKERS)]
+        await asyncio.sleep(mix_s)
+        # SIGKILL the store the client believes leads region 1 (as
+        # proc_supervisor's _soak): crash-stop, no drain
+        def endpoint(peer: str) -> str:
+            return ":".join(peer.split("/", 1)[0].split(":")[:2])
+
+        peer = kv._leaders.get(1)
+        check(peer is not None, "the client knows no leader of region 1")
+        victim_ep = endpoint(peer)
+        led = sorted(rid for rid, p in kv._leaders.items()
+                     if p and endpoint(p) == victim_ep)
+        victim = sup.by_endpoint(victim_ep)
+        probes = {rid: (starts[rid - 1] or b"\x00") + b"-probe"
+                  for rid in led}
+        log(f"[9] SIGKILL {victim_ep} (pid {victim.pid}), which leads "
+            f"{len(led)} of {n} regions by the client's cache")
+        spawns = victim.spawns
+        t_kill = time.perf_counter()
+        victim.kill()
+        deadline = loop.time() + FLEET_READY_S
+
+        async def ready_at() -> float:
+            # the supervised restart: respawned (which clears the READY
+            # of the killed child), then READY again
+            while victim.spawns == spawns:
+                check(loop.time() < deadline, "the supervisor did not "
+                      "restart the killed store")
+                await asyncio.sleep(0.01)
+            await victim.wait_ready(FLEET_READY_S)
+            return time.perf_counter()
+
+        ready = asyncio.ensure_future(ready_at())
+        # the regions it led: the first write each takes after the kill
+        failover = await asyncio.gather(*(
+            put_until_acked(-2, key, b"failover", deadline)
+            for key in probes.values()))
+        res["victim_regions"] = len(led)
+        res["failover_s"] = max(failover) - t_kill
+        res["failover_s_p50"] = float(np.median(failover)) - t_kill
+        t_ready = await ready
+        res["restart_s"] = t_ready - t_kill
+        replay = await asyncio.gather(*(
+            put_until_acked(-3, key, b"replay", deadline)
+            for key in probes.values()))
+        res["replay_s"] = max(replay) - t_ready
+        res["replay_s_p50"] = float(np.median(replay)) - t_ready
+        await asyncio.sleep(mix_s)
+        stop.set()
+        await asyncio.gather(*workers)
+        res["mix_s"] = time.perf_counter() - t_mix
+        res.update(counts)
+        res["ops_per_s"] = counts["ops"] / res["mix_s"]
+        res["ack_p50_ms"], res["ack_p99_ms"] = pct(lats, 50), pct(lats, 99)
+
+        # every acknowledged write read back: a key holds its last
+        # acknowledged value or the value of a write never acknowledged
+        got = {}
+        for i in range(0, n_keys, 256):
+            keys = [k for k, _ in kvs[i:i + 256]]
+            toks = [hist.invoke(-4, "r", (k,)) for k in keys]
+            vals = await kv.multi_get(keys)
+            for k, tok in zip(keys, toks):
+                hist.complete(tok, vals.get(k))
+            got.update(vals)
+        lost = [k for k, v in acked.items()
+                if got.get(k) != v and got.get(k) not in unacked[k]]
+        check(not lost, f"{len(lost)} of {n_keys} keys lost an acknowledged "
+              f"write, first {lost[:3]}")
+        t0 = time.perf_counter()
+        report = check_history(hist)
+        res["checker_s"] = time.perf_counter() - t0
+        check(report.ok, f"the fleet's history is not linearizable: "
+              f"{str(report)[:2000]}")
+        res["linearizable"] = True
+        res["restarts"] = sup.restarts
+        res["failed_stores"] = dict(sup.failed)
+        check(sup.restarts >= 1 and not sup.failed,
+              f"restarts {sup.restarts}, failed stores {sup.failed}")
+        res["servers"] = await server_metrics(transport, stores)
+        check(all((m["engine_ticks"] or 0) > 0
+                  for m in res["servers"].values()),
+              f"a server's engine did not tick: {res['servers']}")
+        await kv.shutdown()
+        kv = None
+        await transport.close()
+        transport = None
+        await sup.stop(drain_timeout_s=60)
+        res["drained"] = {p.endpoint: p.drained for p in sup.procs}
+        res["exit_codes"] = {p.endpoint: p.returncode() for p in sup.procs}
+        check(all(d and d.get("clean") for d in res["drained"].values())
+              and set(res["exit_codes"].values()) == {0},
+              f"drain {res['drained']}, exit codes {res['exit_codes']}")
+    except BaseException:
+        for p in sup.procs:
+            log(f"[9] {p.name} (spawns {p.spawns}, rc {p.returncode()}):\n"
+                + "\n".join(list(p.tail)[-30:]))
+        raise
+    finally:
+        if kv is not None:
+            await kv.shutdown()
+        if transport is not None:
+            await transport.close()
+        if any(p.alive() for p in sup.procs):  # a failed phase: stop all
+            await sup.stop(drain_timeout_s=5)
+        shutil.rmtree(data, ignore_errors=True)
+    res["hist_ops"] = len(hist.ops())
+    res["wall_s"] = time.perf_counter() - t_start
+    log(f"[9] supervised fleet: 3 server processes (--engine --transport "
+        f"native --store native --log-scheme multilog, {n} regions) ready "
+        f"in {res['ready_s']:.3f} s; {n_keys} keys loaded; mix "
+        f"{res['ops']} ops ({res['acked']} acknowledged) at "
+        f"{res['ops_per_s']:.1f} ops/s, ack p50 {res['ack_p50_ms']:.3f} ms "
+        f"p99 {res['ack_p99_ms']:.3f} ms; SIGKILL -> READY "
+        f"{res['restart_s']:.3f} s; its {res['victim_regions']} regions "
+        f"took a write {res['failover_s']:.3f} s after the kill and "
+        f"{res['replay_s']:.3f} s after READY (the last of them); every "
+        f"acknowledged write read back, "
+        f"linearizable ({res['hist_ops']} ops, check "
+        f"{res['checker_s']:.3f} s); engine ticks "
+        f"{[m['engine_ticks'] for m in res['servers'].values()]}; SIGTERM: "
+        f"every process drained clean and exited 0")
+    log("[9] " + json.dumps(res))
+    return res
+
+
+# -- phase 10: the storage fault plane ----------------------------------------
+
+# BENCH_SOAK.json's run_disk_pressure is --disk-pressure --power-loss
+# --seed 2 --duration 300; the duration is cut to fit the call
+FAULT_SOAK_SECS = 60
+FAULT_SOAK_SEED = 2
+FAULT_CHILD_SLACK_S = 300   # start-up, the history check, teardown
+
+
+def start_fault_plane(args) -> dict:
+    """Start phase 10: `python -m tpuraft_torch.examples.soak
+    --disk-pressure --power-loss --seed 2 --duration FAULT_SOAK_SECS` in a
+    process of its own: 3 stores, each store's directory under the
+    port's ChaosDir (a standing byte quota matched by the store's disk
+    budget, quota shrinks and ENOSPC bursts, power-loss crash images),
+    composed with leader kills, one-way partitions and packet noise. It
+    runs on the host only: the reference allows these modes only without
+    the engine (the multilog's fd-level I/O is out of the interposer's
+    reach), and this slice adds nothing the JAX package lacks. Needing
+    no card, it runs beside phases 2-5 (one more busy core of the
+    host's), and phase_fault_plane reads it after phase 9."""
+    import tempfile
+    import threading
+
+    secs = 40 if args.cpu else FAULT_SOAK_SECS
+    data = tempfile.mkdtemp(prefix="tpuraft_torch_faults_")
+    child = {"secs": secs, "data": data, "t0": time.perf_counter(),
+             "out": open(os.path.join(data, "soak.out"), "w+"),
+             "err": open(os.path.join(data, "soak.err"), "w+")}
+    child["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "tpuraft_torch.examples.soak",
+         "--disk-pressure", "--power-loss", "--seed", str(FAULT_SOAK_SEED),
+         "--duration", str(secs), "--data", os.path.join(data, "d")],
+        stdout=child["out"], stderr=child["err"], text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def reap():  # the child's own wall time, whenever it ends
+        child["proc"].wait()
+        child["wall_s"] = time.perf_counter() - child["t0"]
+
+    child["reaper"] = threading.Thread(target=reap, daemon=True)
+    child["reaper"].start()
+    log(f"[10] the fault-plane soak started beside phases 2-5 (pid "
+        f"{child['proc'].pid}, {secs} s)")
+    return child
+
+
+def stop_fault_plane(child) -> None:
+    """Kill phase 10's child if it still runs, and remove its data."""
+    import shutil
+
+    if child["proc"].poll() is None:
+        child["proc"].kill()
+    child["reaper"].join(30)
+    child["out"].close()
+    child["err"].close()
+    shutil.rmtree(child["data"], ignore_errors=True)
+
+
+def phase_fault_plane(child) -> dict:
+    """Phase 10's result: the child started by start_fault_plane, held
+    to its gates: the exit code, disk_pressure_ok, a linearizable
+    history and power-loss crashes."""
+    secs = child["secs"]
+    # on a timeout the child is killed (stop_fault_plane) and the phase
+    # fails
+    child["reaper"].join(max(0.0, child["t0"] + secs + FAULT_CHILD_SLACK_S
+                             - time.perf_counter()))
+    check(not child["reaper"].is_alive(), "the fault-plane soak did not "
+          f"end within {secs + FAULT_CHILD_SLACK_S} s")
+    child["out"].seek(0)
+    lines = child["out"].read().strip().splitlines()
+    child["err"].seek(0)
+    tail = child["err"].read()[-3000:]
+    rc = child["proc"].returncode
+    check(rc == 0 and lines, f"the fault-plane soak exited {rc}: "
+          f"{lines[-1:]}\n{tail}")
+    r = json.loads(lines[-1])
+    res = {"duration_s": secs, "seed": FAULT_SOAK_SEED,
+           "wall_s": child["wall_s"]}
+    res.update({k: r.get(k) for k in (
+        "linearizable", "ops", "completed", "maybe_applied", "faults",
+        "power_loss_crashes", "storage_injections", "disk",
+        "disk_pressure_ok", "checker_s")})
+    check(r["linearizable"] and r["disk_pressure_ok"]
+          and r["power_loss_crashes"] > 0,
+          f"the fault-plane soak failed its gates: {json.dumps(res)}")
+    log(f"[10] fault-plane soak (--disk-pressure --power-loss, seed "
+        f"{FAULT_SOAK_SEED}, {secs} s, host only): {r['ops']} ops "
+        f"({r['completed']} acknowledged), faults {r['faults']}, "
+        f"{r['power_loss_crashes']} power-loss crashes, ENOSPC observed "
+        f"{r['disk']['enospc_observed']}, reclaims {r['disk']['reclaims']}, "
+        f"shed writes {r['disk']['shed_writes']}, resumes "
+        f"{r['disk']['resumes']}; linearizable (check {r['checker_s']} s)")
+    log("[10] " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -1991,16 +2393,24 @@ def main() -> int:
     dev = torch.device("cpu" if args.cpu else "cuda")
     card, build_s = phase_card(args, torch, quorum_cuda)
     native_build_s = phase_native()
-    rows = phase_kernel(args, torch, quorum_cuda, dev)
-    tick_rows = phase_tick(args, torch, dev)
     if args.quick:
+        phase_kernel(args, torch, quorum_cuda, dev)
+        phase_tick(args, torch, dev)
         log("[quick] build and compare done")
         return 0
-    asyncio.run(phase_engine(args, torch, dev))
-    e2e = asyncio.run(phase_e2e(args, torch, quorum_cuda, tick, dev))
-    kv = asyncio.run(phase_kv(args, quorum_cuda, tick))
-    soak_res = asyncio.run(phase_soak(args, quorum_cuda, tick))
-    life = phase_lifecycle(args)
+    faults = start_fault_plane(args)
+    try:
+        rows = phase_kernel(args, torch, quorum_cuda, dev)
+        tick_rows = phase_tick(args, torch, dev)
+        asyncio.run(phase_engine(args, torch, dev))
+        e2e = asyncio.run(phase_e2e(args, torch, quorum_cuda, tick, dev))
+        kv = asyncio.run(phase_kv(args, quorum_cuda, tick))
+        soak_res = asyncio.run(phase_soak(args, quorum_cuda, tick))
+        life = phase_lifecycle(args)
+        fleet = asyncio.run(phase_fleet(args))
+        phase_fault_plane(faults)
+    finally:
+        stop_fault_plane(faults)
     paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
              "phase6_kv_lease_reads": kv["lease"],
              "phase7_soak": soak_res, "phase8_lifecycle": life}
@@ -2033,9 +2443,14 @@ def main() -> int:
               "the XLA program around the Pallas call)",
               engine_ticks_by_path={k: v["engine_ticks"]
                                     for k, v in paths.items()},
+              server_engine_ticks={"phase9_supervised_fleet": {
+                  ep: m["engine_ticks"]
+                  for ep, m in fleet["servers"].items()}},
               main_path="launches counts phase 6 leg A (the KV store); the "
-              "server processes of legs C and D count in their own "
-              "processes; phase 7 (the engine soak) and phase 8 (the "
+              "server processes of legs C and D and of phase 9 count in "
+              "their own processes (server_engine_ticks: each engine tick "
+              "there is one fused-tick launch, read through the servers' "
+              "metrics RPC); phase 7 (the engine soak) and phase 8 (the "
               "region lifecycle) are in launches_by_path"),
     ]
     for k in kernels:

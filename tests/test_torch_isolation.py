@@ -1,6 +1,7 @@
 """tpuraft_torch stands alone: it imports neither jax nor anything of
-tpuraft, and its copies of tpuraft's host modules do not drift from
-their originals except where the port must differ."""
+tpuraft or of the top-level examples package, and its copies of their
+modules do not drift from their originals except where the port must
+differ."""
 
 import ast
 import difflib
@@ -46,11 +47,15 @@ COPIES = [
     "rpc/native_tcp.py", "rpc/fault.py", "route_table.py",
     "rheakv/keyspace.py", "rheakv/placement.py", "rheakv/pd_server.py",
     "examples/pd_server.py",
+    "storage/fault.py", "config.py", "examples/rheakv_bench.py",
+    "examples/counter.py", "examples/election.py", "examples/admin.py",
+    "examples/proc_supervisor.py",
 ]
-# Copies whose original lies outside the JAX package.
-ORIGINALS = {"examples/rheakv_server.py": ROOT / "examples/rheakv_server.py",
-             "examples/soak.py": ROOT / "examples/soak.py",
-             "examples/pd_server.py": ROOT / "examples/pd_server.py"}
+# Copies whose original lies outside the JAX package: the top-level
+# examples package.
+ORIGINALS = {rel: ROOT / rel for rel in COPIES if rel.startswith("examples/")}
+# Copies that are not Python: byte for byte their originals.
+DATA = ["examples/counter.yaml"]
 # The C++ sources of the native engines: the port builds its own copy.
 NATIVE = sorted(subprocess.run(
     ["git", "ls-files", "native"], cwd=ROOT, capture_output=True,
@@ -65,11 +70,16 @@ WRITTEN = [
 
 def _rename(src: str) -> str:
     """The one mechanical edit of a copy: tpuraft -> tpuraft_torch in
-    import statements."""
+    import statements, and the top-level examples package ->
+    tpuraft_torch.examples in imports and in the ``-m`` argument of a
+    child's command line."""
     src = re.sub(r"(?m)^(\s*)from tpuraft([. ])", r"\1from tpuraft_torch\2",
                  src)
-    return re.sub(r"(?m)^(\s*)import tpuraft([. ]|$)",
-                  r"\1import tpuraft_torch\2", src)
+    src = re.sub(r"(?m)^(\s*)import tpuraft([. ]|$)",
+                 r"\1import tpuraft_torch\2", src)
+    src = re.sub(r"(?m)^(\s*)from examples\.",
+                 r"\1from tpuraft_torch.examples.", src)
+    return src.replace('"-m", "examples.', '"-m", "tpuraft_torch.examples.')
 
 
 # core/engine.py: the device half, which the port rewrites for torch.
@@ -117,8 +127,7 @@ def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
     """examples/soak.py: the ``device`` keyword (run_soak's,
     run_lifecycle_soak's and SoakCluster.__init__'s signatures, the
     attribute it sets, the SoakCluster calls that pass it on and the
-    TickOptions that takes it) and the up-front refusal of the unported
-    modes after main()'s parse_args."""
+    TickOptions that takes it)."""
     fns = {n.name: n for n in tree.body
            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
     cluster = next(n for n in tree.body if isinstance(n, ast.ClassDef)
@@ -135,17 +144,14 @@ def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
         out += [(n.lineno - 1, n.end_lineno) for n in ast.walk(scope)
                 if isinstance(n, ast.Assign)
                 and ast.unparse(n.value).startswith(call)]
-    out += [(s.lineno - 1, s.end_lineno) for s in fns["main"].body
-            if ast.unparse(s) == "args = ap.parse_args()"]
     return out
 
 
 def _spans(src: str, rel: str) -> list[tuple[int, int]]:
     """0-based [start, end) line spans of the original where the copy
-    may differ: TickOptions, the server's import block (it carries
-    make_regions in), the PD server's import of make_regions, the
-    directory the native loaders build in, the soak's device keyword
-    and refusal, and the engine's device half."""
+    may differ: TickOptions, the directory the native loaders build in,
+    the directory the supervisor starts its children in, the soak's
+    device keyword and the engine's device half."""
     tree = ast.parse(src)
     if rel == "core/engine.py":
         return _engine_spans(tree)
@@ -158,19 +164,17 @@ def _spans(src: str, rel: str) -> list[tuple[int, int]]:
         fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
                   and n.name == "_native_dir")
         out.append((fn.lineno - 1, fn.end_lineno))
-    if rel == "examples/rheakv_server.py":
-        # the original imports make_regions from examples/rheakv_bench.py,
-        # which loads the JAX package; the copy defines it here instead
-        imports = [n for n in tree.body
-                   if isinstance(n, (ast.Import, ast.ImportFrom))]
-        derive = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
-                      and n.name == "derive_regions")
-        out.append((imports[0].lineno - 1, derive.lineno - 1))
-    if rel == "examples/pd_server.py":
-        # the same make_regions, taken from the server copy
-        out += [(n.lineno - 1, n.end_lineno) for n in tree.body
-                if isinstance(n, ast.ImportFrom)
-                and n.module == "examples.rheakv_bench"]
+    if rel == "examples/proc_supervisor.py":
+        # the children start in the checkout's root, where both packages
+        # import: one directory up from examples/, two from the copy's
+        # tpuraft_torch/examples/
+        proc = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+                    and n.name == "StoreProcess")
+        spawn = next(n for n in proc.body if isinstance(n, ast.FunctionDef)
+                     and n.name == "spawn")
+        out += [(s.lineno - 1, s.end_lineno) for s in spawn.body
+                if isinstance(s, ast.Assign)
+                and ast.unparse(s.targets[0]) == "self.proc"]
     for node in ast.walk(tree):
         if rel == "options.py" and isinstance(node, ast.ClassDef) \
                 and node.name == "TickOptions":
@@ -189,10 +193,10 @@ def test_copy_matches_original(rel):
     copy = (PORT / rel).read_text().splitlines()
     spans = _spans("\n".join(orig), rel)
     expected = {"options.py": 1, "core/engine.py": 10,
-                "examples/rheakv_server.py": 1, "examples/pd_server.py": 1,
                 "storage/native_log.py": 1, "storage/multilog.py": 1,
                 "rheakv/native_store.py": 1, "rpc/native_tcp.py": 1,
-                "examples/soak.py": 8}.get(rel, 0)
+                "examples/proc_supervisor.py": 1,
+                "examples/soak.py": 7}.get(rel, 0)
     assert len(spans) == expected, spans
     for tag, i1, i2, _, _ in difflib.SequenceMatcher(
             None, orig, copy, autojunk=False).get_opcodes():
@@ -207,6 +211,11 @@ def test_copy_matches_original(rel):
         # for byte the original's branch
         assert "from tpuraft_torch.rpc.native_tcp import NativeTcpRpcServer" \
             " as Server" in "\n".join(copy)
+
+
+@pytest.mark.parametrize("rel", DATA)
+def test_data_copy_matches_original(rel):
+    assert (PORT / rel).read_bytes() == (ROOT / rel).read_bytes()
 
 
 @pytest.mark.parametrize("name", NATIVE)
@@ -229,6 +238,11 @@ def test_no_a6_refusal_remains():
         assert "ROADMAP A6" not in path.read_text(), path
 
 
+def test_no_a9_refusal_remains():
+    for path in PORT.rglob("*.py"):
+        assert "ROADMAP A9" not in path.read_text(), path
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -244,12 +258,14 @@ def _imports(path: Path):
 def test_no_jax_or_tpuraft_imports_in_source(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "tpuraft"), f"{path}: {mod}"
+        assert top not in ("jax", "jaxlib", "tpuraft", "examples"), \
+            f"{path}: {mod}"
 
 
 def test_every_module_imports_without_jax_or_tpuraft():
     """Walk and import the whole port in a fresh interpreter where jax
-    is absent and any tpuraft import is refused."""
+    is absent and any tpuraft or top-level examples import is
+    refused."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -257,7 +273,7 @@ def test_every_module_imports_without_jax_or_tpuraft():
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name == "tpuraft" or name.startswith("tpuraft."):
+                if name.split(".")[0] in ("tpuraft", "examples"):
                     raise ImportError("refused: " + name)
                 return None
 
@@ -268,7 +284,7 @@ def test_every_module_imports_without_jax_or_tpuraft():
         for name in names:
             importlib.import_module(name)
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("tpuraft", "jax", "jaxlib")
+               if m.split(".")[0] in ("tpuraft", "examples", "jax", "jaxlib")
                and sys.modules[m] is not None]
         assert not bad, bad
         print(len(names))

@@ -3,8 +3,9 @@ CPU: the port copy of tests/test_examples.py's short soak, the engine
 soak (every store a torch MultiRaftEngine ticking on the CPU over the
 shared multilog journal, multimeta and quiescence) proven linearizable
 under the default nemesis, the lifecycle, hotspot and native-transport
-soaks, the card as the engines' default device, and the up-front
-refusal of the modes whose storage fault plane is not ported."""
+soaks, the card as the engines' default device, and the storage fault
+plane's modes (--power-loss, --gray, --disk-pressure) with the
+reference's own refusal of --gray with the engine."""
 
 from __future__ import annotations
 
@@ -147,33 +148,46 @@ def test_lifecycle_soak_without_a_card_exits_with_the_engine_error(
     assert "lifecycle_ok" not in proc.stdout
 
 
-_UNPORTED = [["--power-loss"], ["--gray"], ["--disk-pressure"]]
+# each storage-fault mode and the counter that shows its faults landed
+_FAULT_MODES = {
+    "power_loss": lambda r: r["power_loss_crashes"],
+    "gray": lambda r: sum(r["gray"]["slow_injections"].values()),
+    "disk_pressure": lambda r: r["disk"]["enospc_observed"],
+}
 
 
-@pytest.mark.parametrize("flags", _UNPORTED, ids=lambda f: f[0].lstrip("-"))
-def test_unported_modes_are_refused_up_front(monkeypatch, capsys, flags):
-    """Each mode that reaches the unported storage fault plane is
-    refused by the CLI before any store boots or any directory is
-    made."""
-    def boot(*a, **kw):
-        raise AssertionError("booted a refused mode")
+@pytest.mark.parametrize("mode", list(_FAULT_MODES))
+async def test_storage_fault_soak_on_the_cpu(tmp_path, monkeypatch, mode):
+    """--power-loss, --gray and --disk-pressure (seed 3, 8 s) through
+    the port's storage fault plane: every store's directory under a
+    ChaosDir, power-loss crash images, fail-slow fsyncs and writes, or a
+    standing byte quota with ENOSPC; the history is linearizable and the
+    mode's faults landed."""
+    from tests.test_torch_kv import DISK_BUDGET
 
-    for name in ("run_soak", "run_hotspot_soak", "run_lifecycle_soak"):
-        monkeypatch.setattr(soak, name, boot)
-    monkeypatch.setattr(soak.tempfile, "mkdtemp", boot)
-    monkeypatch.setattr(sys, "argv", ["soak", "--duration", "1", *flags])
-    with pytest.raises(SystemExit) as exc:
-        soak.main()
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP A9" in err and " ".join(flags) in err
+    monkeypatch.setattr(soak, "StoreEngineOptions", functools.partial(
+        soak.StoreEngineOptions, disk_budget_bytes=DISK_BUDGET))
+    r = await asyncio.wait_for(soak.run_soak(
+        duration_s=8, n_stores=3, n_keys=4, seed=3,
+        data_path=str(tmp_path), verbose=False, **{mode: True}), 110)
+    assert r["linearizable"], r
+    assert _FAULT_MODES[mode](r) > 0, r
+    assert r.get("disk_pressure_ok", True), r
 
 
-def test_cli_refuses_unported_modes_together():
+def test_cli_refuses_gray_with_the_engine_as_the_reference_does(tmp_path):
+    """--gray --engine: the port's CLI fails with the JAX package's own
+    refusal (the fault plane reaches the Python storage planes only,
+    not the multilog's fd-level fsyncs) and prints no result."""
+    from examples import soak as ref_soak
+
+    with pytest.raises(ValueError) as ref:
+        asyncio.run(ref_soak.run_soak(1, 3, 4, 0, str(tmp_path), False,
+                                      engine=True, gray=True))
     proc = subprocess.run(
         [sys.executable, "-m", "tpuraft_torch.examples.soak", "--gray",
-         "--power-loss", "--regions", "1024", "--engine"],
+         "--engine", "--duration", "1", "--data", str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2
-    assert "--power-loss, --gray: not ported" in proc.stderr
+    assert proc.returncode != 0
+    assert proc.stderr.rstrip().endswith(f"ValueError: {ref.value}")
     assert proc.stdout == ""

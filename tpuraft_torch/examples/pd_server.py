@@ -22,7 +22,7 @@ import os
 import signal
 import sys
 
-from tpuraft_torch.examples.rheakv_server import make_regions
+from tpuraft_torch.examples.rheakv_bench import make_regions
 from tpuraft_torch.rheakv.pd_server import (
     PlacementDriverOptions,
     PlacementDriverServer,

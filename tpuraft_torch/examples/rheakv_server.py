@@ -21,25 +21,12 @@ import asyncio
 import json
 import os
 import signal
-import struct
 import sys
 
+from tpuraft_torch.examples.rheakv_bench import make_regions
 from tpuraft_torch.rheakv.client import RheaKVStore
-from tpuraft_torch.rheakv.metadata import Region
 from tpuraft_torch.rheakv.pd_client import FakePlacementDriverClient
 from tpuraft_torch.rheakv.store_engine import StoreEngine, StoreEngineOptions
-
-
-def make_regions(n_regions: int, n_keys_space: int = 1 << 32) -> list[Region]:
-    """Pre-split the 4-byte big-endian key space into n_regions ranges
-    (the reference benchmark pre-splits via PD before loading)."""
-    bounds = [int(i * n_keys_space / n_regions) for i in range(n_regions + 1)]
-    regions = []
-    for i in range(n_regions):
-        start = struct.pack(">I", bounds[i]) if i else b""
-        end = struct.pack(">I", bounds[i + 1]) if i < n_regions - 1 else b""
-        regions.append(Region(id=i + 1, start_key=start, end_key=end))
-    return regions
 
 
 def derive_regions(stores: list[str], n_regions: int):

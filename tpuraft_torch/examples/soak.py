@@ -2261,14 +2261,6 @@ def main() -> None:
                          "group hibernation")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
-    # modes whose storage fault plane (storage/fault.py) is not ported:
-    # refused before anything boots
-    unported = [flag for flag, on in (
-        ("--power-loss", args.power_loss), ("--gray", args.gray),
-        ("--disk-pressure", args.disk_pressure)) if on]
-    if unported:
-        ap.error(f"{', '.join(unported)}: not ported to tpuraft_torch yet "
-                 "(ROADMAP A9)")
     data = args.data or tempfile.mkdtemp(prefix="tpuraft-soak-")
     if args.lifecycle:
         import json

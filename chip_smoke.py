@@ -7,7 +7,8 @@
 
 Phases (any failure exits non-zero; none is caught):
   1. the card (nvidia-smi name and power limit), the build of the
-     kernel library (fused quorum and fused tick, one nvcc per source)
+     kernel library (fused quorum, fused tick and replica quorum, one
+     nvcc per source)
      and the build of the native engines from tpuraft_torch/native
      (logstore, multilog, kvstore, the epoll transport; make, g++, zlib);
   2. the fused-quorum CUDA kernel against its plain torch version on the
@@ -90,7 +91,22 @@ Phases (any failure exits non-zero; none is caught):
      FAULT_SOAK_SECS (BENCH_SOAK.json's run_disk_pressure), host only:
      ChaosDir quotas, ENOSPC bursts and power-loss crash images under
      the default nemesis; exit 0, disk_pressure_ok, linearizable, and
-     power-loss crashes.
+     power-loss crashes;
+ 11. the replica plane (the JAX package's replica-axis commit plane,
+     tpuraft/parallel/, on one card):
+     a. the replica-quorum CUDA kernel against its plain torch version
+        and torch.kthvalue on the card, bit for bit, at R=3 G=16,384 (the
+        north star), R=5 G=1,024, R=3 G=1,024 (11(b)'s shape) and R in
+        {1, 2, 4, 7, 33} at G=1,000, on edge planes (all-zero columns,
+        ties, one row ahead, values up to 2^28 - 1, unattested rows at 0),
+        then timed;
+     b. in a process of its own started beside phase 8 and read after
+        it: ReplicaPlaneCluster(3, 1024, device="cuda") with
+        memory:// logs, the in-process transport and a 2 s election
+        timeout: every group elects, takes 3 waves of 2 writes, loses the
+        replica that leads the fewest groups, re-elects and takes one
+        more write; every surviving replica's log equals the acknowledged
+        writes, and every plane tick is one replica-quorum launch.
 With --cpu the server processes of legs C and D and of phase 9 run
 their engines on the CPU. The last four lines are the native libraries,
 the card, the kernel table and the result, the last two JSON.
@@ -200,7 +216,9 @@ def phase_card(args, torch, quorum_cuda) -> tuple[str, float | None]:
         if "Compiling entry function" in line:
             entry = next((f"{k} S={w}" for k in ("fused_quorum", "fused_tick")
                           for w in (8, 16, 32)
-                          if f"{k}_kernelILi{w}EE" in line), "")
+                          if f"{k}_kernelILi{w}EE" in line), "") or next(
+                (f"replica_quorum R<={w}" for w in (4, 64)
+                 if f"replica_quorum_kernelILi{w}EE" in line), "")
         elif entry and ("Used" in line or "spill" in line):
             log(f"    ptxas {entry}: {line.strip()}")
     quorum_cuda.load()
@@ -2355,6 +2373,270 @@ def phase_fault_plane(child) -> dict:
     return res
 
 
+# -- phase 11: the replica plane ----------------------------------------------
+
+# 11(a): the north-star configuration (3 replicas x 16K groups,
+# BASELINE.md), 5 replicas x 1K groups, 11(b)'s own shape, and every R
+# bucket of the kernel at a ragged G
+REPLICA_SHAPES = [(3, 16384), (5, 1024), (3, 1024), (1, 1000), (2, 1000),
+                  (4, 1000), (7, 1000), (33, 1000)]
+REPLICA_GROUPS = 1024       # 11(b): 3 replica endpoints x 1,024 groups
+REPLICA_ETO_MS = 2000       # phase 5's election timeout
+REPLICA_WAVES, REPLICA_WRITES = 3, 2
+REPLICA_CHILD_SLACK_S = 600
+
+
+def replica_inputs(rng, r, g):
+    """Seeded [R, G] planes: match rows with all-zero columns, ties, one
+    row far ahead, values up to 2^28 - 1 and unattested rows (masked to
+    0 by the plane); grants at random."""
+    rel = rng.integers(0, 1 << 20, (r, g)).astype(np.int32)
+    kind = rng.random(g)
+    rel[:, kind < 0.05] = 0                                 # all zero
+    tie = (kind >= 0.05) & (kind < 0.2)
+    rel[:, tie] = rel[0, tie]                               # ties
+    ahead = (kind >= 0.2) & (kind < 0.3)
+    rel[rng.integers(0, r), ahead] = (1 << 28) - 1          # one row ahead
+    big = rng.random((r, g)) < 0.05
+    rel[big] = rng.integers(0, 1 << 28, int(big.sum()))
+    rel[rng.random((r, g)) < 0.1] = 0                       # unattested
+    return rel, rng.random((r, g)) < 0.5
+
+
+def replica_bound_ms(r, g) -> float:
+    """Least time for the work: each input read once (an int32 and a
+    byte plane of R x G), each output written once (two int32 rows)."""
+    return (r * g * 4 + r * g + g * 8) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_replica_kernel(args, torch, dev) -> list[dict]:
+    """11(a): the replica-quorum kernel against its plain version (and
+    torch.kthvalue, the one PyTorch call that computes the commit half)
+    on the same inputs on the card, bit for bit, then timed."""
+    from tpuraft_torch.parallel import collective
+
+    shapes = [(3, 64), (5, 32), (1, 10), (2, 10), (4, 10), (7, 10),
+              (33, 10)] if args.cpu else REPLICA_SHAPES
+    rng = np.random.default_rng(SEED + 11)
+    rows = []
+    for r, g in shapes:
+        rel, granted = (torch.from_numpy(a).to(dev)
+                        for a in replica_inputs(rng, r, g))
+        q = r // 2 + 1
+        commit, votes = collective.replica_quorum(rel, granted, r)
+        want_c = collective.replica_commit_point(rel, r)
+        want_v = collective.replica_vote_count(granted)
+        lib_c = torch.kthvalue(rel, r - q + 1, dim=0).values
+        if not args.cpu:
+            torch.cuda.synchronize()
+        for name, t, w in (("commit", commit, want_c), ("votes", votes, want_v),
+                           ("kthvalue", lib_c, want_c)):
+            check(t.device == w.device and t.dtype == w.dtype
+                  and t.shape == (g,), f"{name}: wrong result layout")
+            check(torch.equal(t, w), f"replica_quorum {name} differs from "
+                  f"plain at R={r} G={g}")
+        err = max(int((t.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for t, w in ((commit, want_c), (votes, want_v)))
+        row = {"R": r, "G": g, "max_abs_err": err,
+               "bound_ms": replica_bound_ms(r, g)}
+        if args.cpu or args.quick:
+            row.update(ms=None, plain_ms=None, library_ms=None)
+        else:
+            reps = max(1, TIMED_LAUNCHES // 100)
+            row["ms"] = time_graph(
+                torch, lambda: collective.replica_quorum(rel, granted, r),
+                replays=reps)
+            row["plain_ms"] = time_graph(
+                torch, lambda: (collective.replica_commit_point(rel, r),
+                                collective.replica_vote_count(granted)),
+                replays=reps)
+            row["library_ms"] = time_graph(
+                torch, lambda: torch.kthvalue(rel, r - q + 1, dim=0),
+                replays=reps)
+            row["eager_ms"] = time_events(
+                torch, lambda: collective.replica_quorum(rel, granted, r),
+                TIMED_LAUNCHES)
+        rows.append(row)
+        log(f"[11] replica_quorum R={r} G={g}: bit-exact vs plain and "
+            f"torch.kthvalue; " + ", ".join(
+                f"{k}={v}" for k, v in row.items() if k.endswith("ms")))
+    return rows
+
+
+async def replica_plane_run(args) -> dict:
+    """11(b): `ReplicaPlaneCluster(3, REPLICA_GROUPS, device="cuda")` as
+    examples/replica_plane.py --chaos drives it: memory:// logs, the
+    in-process transport, every commit decided by one replica-quorum
+    launch a plane tick; every group elects, takes REPLICA_WAVES waves
+    of REPLICA_WRITES writes, loses the replica that leads the fewest
+    groups, re-elects and takes one more write; every surviving
+    replica's log equals the acknowledged writes."""
+    from tpuraft_torch.core.node import State
+    from tpuraft_torch.entity import Task
+    from tpuraft_torch.parallel import collective
+    from tpuraft_torch.parallel.replica_cluster import ReplicaPlaneCluster
+
+    n = (args.groups or 16) if args.cpu else REPLICA_GROUPS
+    loop = asyncio.get_running_loop()
+    rng = np.random.default_rng(SEED + 12)
+    collective.LAUNCHES = 0  # the path's count starts here
+    t0 = time.perf_counter()
+    c = ReplicaPlaneCluster(3, n, device="cpu" if args.cpu else "cuda",
+                            election_timeout_ms=REPLICA_ETO_MS)
+    await c.start_all()
+    boot_s = time.perf_counter() - t0
+    acked = {g: [] for g in c.groups}
+
+    async def leaders(timeout_s):
+        deadline = loop.time() + timeout_s
+        while True:
+            found = {}
+            for (g, _), node in c.nodes.items():
+                if node.state == State.LEADER:
+                    found.setdefault(g, []).append(node)
+            if all(len(found.get(g, ())) == 1 for g in c.groups):
+                return {g: found[g][0] for g in c.groups}
+            check(loop.time() < deadline,
+                  f"{sum(len(found.get(g, ())) == 1 for g in c.groups)}/"
+                  f"{n} groups have one leader")
+            await asyncio.sleep(0.05)
+
+    async def write_all(leader_of, k):
+        futs = []
+        for g in c.groups:
+            for _ in range(k):
+                data = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
+                fut = loop.create_future()
+                await leader_of[g].apply(Task(data=data, done=fut.set_result))
+                futs.append((g, data, fut))
+        sts = await asyncio.wait_for(
+            asyncio.gather(*[f for _, _, f in futs]), 120)
+        bad = [(g, str(st)) for (g, _, _), st in zip(futs, sts)
+               if not st.is_ok()]
+        check(not bad, f"{len(bad)} writes not acknowledged: {bad[:3]}")
+        for g, data, _ in futs:
+            acked[g].append(data)
+        return len(futs)
+
+    async def read_back(timeout_s=60):
+        deadline = loop.time() + timeout_s
+        while True:
+            behind = [k for k in c.nodes if c.fsms[k].logs != acked[k[0]]]
+            if not behind:
+                return
+            for k in behind:
+                logs = c.fsms[k].logs
+                check(logs == acked[k[0]][:len(logs)],
+                      f"replica {k} log differs from the acked writes")
+            check(loop.time() < deadline,
+                  f"{len(behind)} replicas behind the acked writes")
+            await asyncio.sleep(0.05)
+
+    try:
+        t0 = time.perf_counter()
+        leader_of = await leaders(120)
+        elect_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        writes = 0
+        for _ in range(REPLICA_WAVES):
+            writes += await write_all(leader_of, REPLICA_WRITES)
+        await read_back()
+        write_s = time.perf_counter() - t0
+        lead_count = {ep.endpoint: 0 for ep in c.endpoints}
+        for node in leader_of.values():
+            lead_count[node.server_id.endpoint] += 1
+        victim = min(c.endpoints, key=lambda ep: lead_count[ep.endpoint])
+        t0 = time.perf_counter()
+        await c.stop_replica(victim)
+        leader_of = await leaders(180)
+        reelect_s = time.perf_counter() - t0
+        writes += await write_all(leader_of, 1)
+        await read_back()
+        failover_s = time.perf_counter() - t0
+        ticks, advances = c.plane.ticks, c.plane.commit_advances
+    finally:
+        await c.stop_all()
+    launches = collective.LAUNCHES  # read right after the path
+    res = {"replicas": 3, "groups": n, "device": "cpu" if args.cpu
+           else "cuda", "launches": launches, "plane_ticks": ticks,
+           "commit_advances": advances, "acked_writes": writes,
+           "victim_led": lead_count[victim.endpoint], "boot_s": boot_s,
+           "elect_s": elect_s, "write_s": write_s, "reelect_s": reelect_s,
+           "failover_s": failover_s}
+    log("[11] " + json.dumps(res))
+    check(writes == n * (REPLICA_WAVES * REPLICA_WRITES + 1), "write count")
+    check(advances >= n, f"{advances} commit advances for {n} groups")
+    check(elect_s < 120 and failover_s < 180,
+          f"election {elect_s:.3f} s / failover {failover_s:.3f} s over "
+          f"the limits (120 / 180 s)")
+    if not args.cpu:
+        check(launches > 0 and launches == ticks,
+              f"{ticks} plane ticks made {launches} replica-quorum "
+              f"launches (one each expected)")
+    return res
+
+
+def start_replica_plane(args) -> dict:
+    """Start 11(b) in a process of its own (`chip_smoke.py
+    --replica-child OUT`) beside phase 8, while this process only waits
+    for the lifecycle child: its one event loop drives 3 x 1,024 raft
+    nodes on their own timers, a host-bound load that would otherwise
+    add its whole wall time to the script's, and that beside phases 5-6
+    slowed their single loops. The kernel library is built (phase 1);
+    the child loads it."""
+    import tempfile
+    import threading
+
+    fd, out = tempfile.mkstemp(prefix="tpuraft_torch_replica_",
+                               suffix=".json")
+    os.close(fd)
+    cmd = [sys.executable, os.path.abspath(__file__), "--replica-child",
+           out] + (["--cpu", "--groups", str(args.groups or 16)]
+                   if args.cpu else [])
+    child = {"out": out, "t0": time.perf_counter(),
+             "proc": subprocess.Popen(cmd)}
+
+    def reap():
+        child["proc"].wait()
+        child["wall_s"] = time.perf_counter() - child["t0"]
+
+    child["reaper"] = threading.Thread(target=reap, daemon=True)
+    child["reaper"].start()
+    log(f"[11] the replica plane started beside phase 8 (pid "
+        f"{child['proc'].pid})")
+    return child
+
+
+def stop_replica_plane(child) -> None:
+    if child["proc"].poll() is None:
+        child["proc"].kill()
+    child["reaper"].join(30)
+    if os.path.exists(child["out"]):
+        os.unlink(child["out"])
+
+
+def phase_replica_plane(child) -> dict:
+    """11(b)'s result: the child's exit code and its record (its gates
+    are held in the child)."""
+    child["reaper"].join(max(0.0, child["t0"] + REPLICA_CHILD_SLACK_S
+                             - time.perf_counter()))
+    check(not child["reaper"].is_alive(), "the replica plane did not end "
+          f"within {REPLICA_CHILD_SLACK_S} s")
+    rc = child["proc"].returncode
+    check(rc == 0, f"the replica-plane child exited {rc}")
+    with open(child["out"]) as f:
+        res = json.load(f)
+    res["child_wall_s"] = child["wall_s"]
+    log(f"[11] replica plane: 3 x {res['groups']} groups elected in "
+        f"{res['elect_s']:.3f} s, {res['acked_writes']} acked writes read "
+        f"back from every surviving replica, the replica leading "
+        f"{res['victim_led']} groups stopped and all re-elected in "
+        f"{res['reelect_s']:.3f} s (failover {res['failover_s']:.3f} s); "
+        f"{res['launches']} replica-quorum launches for "
+        f"{res['plane_ticks']} plane ticks")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -2371,9 +2653,23 @@ def main() -> int:
                          "1024)")
     ap.add_argument("--lifecycle-child", metavar="OUT",
                     help=argparse.SUPPRESS)  # phase 8's own process
+    ap.add_argument("--replica-child", metavar="OUT",
+                    help=argparse.SUPPRESS)  # phase 11(b)'s own process
     args = ap.parse_args()
     if args.groups is not None and not args.cpu:
         ap.error("--groups is for the --cpu rehearsal only")
+    if args.replica_child:  # needs no JAX and no phase before it
+        import torch
+
+        if not args.cpu:
+            check(torch.cuda.is_available(), "no CUDA device")
+            from tpuraft_torch.ops import quorum_cuda
+
+            quorum_cuda.load()  # built by the parent; loaded off the path
+        res = asyncio.run(replica_plane_run(args))
+        with open(args.replica_child, "w") as f:
+            json.dump(res, f)
+        return 0
 
     import torch
 
@@ -2396,21 +2692,28 @@ def main() -> int:
     if args.quick:
         phase_kernel(args, torch, quorum_cuda, dev)
         phase_tick(args, torch, dev)
+        phase_replica_kernel(args, torch, dev)
         log("[quick] build and compare done")
         return 0
     faults = start_fault_plane(args)
+    replica = None
     try:
         rows = phase_kernel(args, torch, quorum_cuda, dev)
         tick_rows = phase_tick(args, torch, dev)
+        replica_rows = phase_replica_kernel(args, torch, dev)
         asyncio.run(phase_engine(args, torch, dev))
         e2e = asyncio.run(phase_e2e(args, torch, quorum_cuda, tick, dev))
         kv = asyncio.run(phase_kv(args, quorum_cuda, tick))
         soak_res = asyncio.run(phase_soak(args, quorum_cuda, tick))
+        replica = start_replica_plane(args)
         life = phase_lifecycle(args)
+        replica_res = phase_replica_plane(replica)
         fleet = asyncio.run(phase_fleet(args))
         phase_fault_plane(faults)
     finally:
         stop_fault_plane(faults)
+        if replica is not None:
+            stop_replica_plane(replica)
     paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
              "phase6_kv_lease_reads": kv["lease"],
              "phase7_soak": soak_res, "phase8_lifecycle": life}
@@ -2453,7 +2756,41 @@ def main() -> int:
               "metrics RPC); phase 7 (the engine soak) and phase 8 (the "
               "region lifecycle) are in launches_by_path"),
     ]
+    main_row = next(r for r in replica_rows if (r["R"], r["G"]) == (
+        3, replica_res["groups"])) if not args.cpu else replica_rows[0]
+    kernels.append({
+        "name": "replica_quorum", "route": "cuda",
+        "source": "tpuraft_torch/ops/csrc/replica_quorum.cu",
+        "replaces": "tpuraft/parallel/collective.py:48",
+        "launches": replica_res["launches"],
+        "launches_by_path": {"phase11_replica_plane": replica_res["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in replica_rows),
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": main_row["library_ms"],
+        "library_call": "torch.kthvalue(rel, R - q + 1, dim=0) (the commit "
+                        "half)",
+        "shape": [main_row["R"], main_row["G"]], "build_s": build_s,
+        "also_replaces": "tpuraft/parallel/collective.py:27, :36 "
+                         "(replica_vote_count, replica_commit_point) and the "
+                         "device call of tpuraft/parallel/replica_plane.py:281",
+        "plane_ticks": replica_res["plane_ticks"],
+        "main_path": "launches counts phase 11(b), 3 x 1,024 groups of the "
+                     "replica plane in its own process: one launch a plane "
+                     "tick",
+        "by_shape": replica_rows})
     for k in kernels:
+        if k["name"] == "replica_quorum":
+            log(f"[k] replica_quorum: launches {k['launches']} for "
+                f"{k['plane_ticks']} plane ticks, match "
+                f"{'exact' if k['max_abs_err'] == 0 else k['max_abs_err']}, "
+                + "; ".join(
+                    f"R={r['R']} G={r['G']}: kernel "
+                    f"{(r['ms'] or 0) * 1e3:.3f} us, plain "
+                    f"{(r['plain_ms'] or 0) * 1e3:.3f} us, kthvalue "
+                    f"{(r['library_ms'] or 0) * 1e3:.3f} us, bound "
+                    f"{r['bound_ms'] * 1e3:.3f} us" for r in k["by_shape"]))
+            continue
         log(f"[k] {k['name']}: launches {k['launches_by_path']}, match "
             f"{'exact' if k['max_abs_err'] == 0 else k['max_abs_err']}, "
             + "; ".join(

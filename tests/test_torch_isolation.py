@@ -50,12 +50,20 @@ COPIES = [
     "storage/fault.py", "config.py", "examples/rheakv_bench.py",
     "examples/counter.py", "examples/election.py", "examples/admin.py",
     "examples/proc_supervisor.py",
+    "parallel/replica_plane.py", "parallel/replica_cluster.py",
+    "examples/replica_plane.py",
+    "analysis/__init__.py", "analysis/__main__.py",
+    "analysis/blocking_calls.py", "analysis/callgraph.py",
+    "analysis/concurrency.py", "analysis/core.py",
+    "analysis/future_leaks.py", "analysis/guarded_by.py",
+    "analysis/lanes.py", "analysis/lock_order.py", "analysis/raw_clock.py",
+    "analysis/wire_schema.py",
 ]
 # Copies whose original lies outside the JAX package: the top-level
 # examples package.
 ORIGINALS = {rel: ROOT / rel for rel in COPIES if rel.startswith("examples/")}
 # Copies that are not Python: byte for byte their originals.
-DATA = ["examples/counter.yaml"]
+DATA = ["examples/counter.yaml", "analysis/lock_order.json"]
 # The C++ sources of the native engines: the port builds its own copy.
 NATIVE = sorted(subprocess.run(
     ["git", "ls-files", "native"], cwd=ROOT, capture_output=True,
@@ -65,6 +73,7 @@ WRITTEN = [
     "__init__.py", "core/__init__.py", "ops/__init__.py",
     "ops/ballot.py", "ops/quorum_cuda.py", "ops/tick.py",
     "examples/__init__.py",
+    "parallel/__init__.py", "parallel/collective.py",
 ]
 
 
@@ -147,12 +156,114 @@ def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
     return out
 
 
+def _stmt(body, prefix: str) -> tuple[int, int]:
+    """The span of the one statement of ``body`` whose source starts
+    with ``prefix``."""
+    hits = [s for s in body if ast.unparse(s).startswith(prefix)]
+    assert len(hits) == 1, (prefix, len(hits))
+    return hits[0].lineno - 1, hits[0].end_lineno
+
+
+def _defs(tree) -> dict:
+    """Top-level functions and classes, and the methods of each class
+    as ``Class.method``."""
+    out = {}
+    for n in tree.body:
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                          ast.ClassDef)):
+            out[n.name] = n
+        if isinstance(n, ast.ClassDef):
+            out.update({f"{n.name}.{m.name}": m for m in n.body
+                        if isinstance(m, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))})
+    return out
+
+
+def _signature(fn) -> tuple[int, int]:
+    return fn.lineno - 1, fn.body[0].lineno - 1
+
+
+def _replica_spans(tree, rel: str, n_lines: int) -> list[tuple[int, int]]:
+    """The replica plane: ``mesh=`` becomes ``device=``/``backend=``
+    (the constructors, the plane's start, its tick's device branch and
+    describe, the example's CLI and JSON line); the example's
+    ``build_mesh`` goes."""
+    d = _defs(tree)
+    if rel == "parallel/replica_plane.py":
+        init = d["ReplicatedClusterPlane.__init__"]
+        return [_signature(init), _stmt(init.body, "self.mesh ="),
+                _stmt(d["ReplicatedClusterPlane.start"].body, "if "),
+                _stmt(d["ReplicatedClusterPlane.tick_once"].body,
+                      "if self._fn is not None"),
+                _stmt(d["ReplicatedClusterPlane.describe"].body, "return")]
+    if rel == "parallel/replica_cluster.py":
+        cls, init = d["ReplicaPlaneCluster"], d["ReplicaPlaneCluster.__init__"]
+        return [_stmt(cls.body, "'R replica endpoints"), _signature(init),
+                _stmt(init.body, "self.plane =")]
+    main, run = d["main"], tree.body[-1].body  # the __main__ block
+    return [(0, tree.body[0].end_lineno),
+            (d["build_mesh"].lineno - 1, d["main"].lineno - 1),
+            (_stmt(main.body, "mesh = None")[0],
+             _stmt(main.body, "c = ReplicaPlaneCluster(")[1]),
+            (lambda body: _stmt(body, "print(json.dumps("))(
+                next(s for s in main.body if isinstance(s, ast.Try)).body),
+            (_stmt(run, "ap.add_argument('--mesh',")[0],
+             _stmt(run, "ap.add_argument('--mesh-groups-axis'")[1])]
+
+
+def _analysis_spans(tree, rel: str, n_lines: int) -> list[tuple[int, int]]:
+    """The analysis tool: the port's default root and package prefix,
+    its tick plane (``ops/`` and ``parallel/collective.py``), the
+    clock-disciplined tree, the sanction list of inherited findings,
+    and in lanes.py the torch host-sync rule in place of the jit-based
+    host-sync and donated-read rules."""
+    d = _defs(tree)
+    if rel == "analysis/__main__.py":
+        body = d["main"].body
+        return [_stmt(body, "ap = argparse.ArgumentParser("),
+                _stmt(body, "ap.add_argument('paths'"),
+                _stmt(body, "roots =")]
+    if rel == "analysis/lock_order.py":
+        return [_stmt(d["_module_tag"].body, "if rel.startswith(")]
+    if rel == "analysis/blocking_calls.py":
+        loop = next(s for s in d["check"].body if isinstance(s, ast.For))
+        return [(0, tree.body[0].end_lineno),
+                _stmt(loop.body, "tick_plane ="),
+                _stmt(d["_scan_module"].body, "why_module =")]
+    if rel == "analysis/concurrency.py":
+        loop = next(s for s in d["check"].body if isinstance(s, ast.For))
+        inner = next(s for s in loop.body if isinstance(s, ast.Assign)
+                     and ast.unparse(s).startswith("tick_plane ="))
+        return [(inner.lineno - 1, inner.end_lineno),
+                _stmt(d["_check_function"].body, "if tick_plane:")]
+    if rel == "analysis/raw_clock.py":
+        return [(_stmt(tree.body, "_SCOPES =")[0],
+                 _stmt(tree.body, "_SCOPE_FILES =")[1])]
+    if rel == "analysis/core.py":
+        run = d["run_checkers"]
+        return [_stmt(run.body, "findings = [f for f in findings if f.rule "
+                                "== 'waiver'"),
+                (tree.body[-1].lineno - 1, n_lines)]
+    if rel == "analysis/lanes.py":
+        return [(0, tree.body[0].end_lineno),
+                _stmt(tree.body, "from tpuraft_torch.analysis.callgraph"),
+                (d["check"].lineno - 1, d["check"].end_lineno),
+                (d["_check_state_parity"].end_lineno, n_lines)]
+    return []
+
+
 def _spans(src: str, rel: str) -> list[tuple[int, int]]:
     """0-based [start, end) line spans of the original where the copy
     may differ: TickOptions, the directory the native loaders build in,
     the directory the supervisor starts its children in, the soak's
     device keyword and the engine's device half."""
     tree = ast.parse(src)
+    n_lines = len(src.splitlines())
+    if rel in ("parallel/replica_plane.py", "parallel/replica_cluster.py",
+               "examples/replica_plane.py"):
+        return _replica_spans(tree, rel, n_lines)
+    if rel.startswith("analysis/"):
+        return _analysis_spans(tree, rel, n_lines)
     if rel == "core/engine.py":
         return _engine_spans(tree)
     if rel == "examples/soak.py":
@@ -196,7 +307,14 @@ def test_copy_matches_original(rel):
                 "storage/native_log.py": 1, "storage/multilog.py": 1,
                 "rheakv/native_store.py": 1, "rpc/native_tcp.py": 1,
                 "examples/proc_supervisor.py": 1,
-                "examples/soak.py": 7}.get(rel, 0)
+                "examples/soak.py": 7,
+                "parallel/replica_plane.py": 5,
+                "parallel/replica_cluster.py": 3,
+                "examples/replica_plane.py": 5,
+                "analysis/__main__.py": 3, "analysis/lock_order.py": 1,
+                "analysis/blocking_calls.py": 3,
+                "analysis/concurrency.py": 2, "analysis/raw_clock.py": 1,
+                "analysis/core.py": 2, "analysis/lanes.py": 4}.get(rel, 0)
     assert len(spans) == expected, spans
     for tag, i1, i2, _, _ in difflib.SequenceMatcher(
             None, orig, copy, autojunk=False).get_opcodes():
@@ -215,7 +333,8 @@ def test_copy_matches_original(rel):
 
 @pytest.mark.parametrize("rel", DATA)
 def test_data_copy_matches_original(rel):
-    assert (PORT / rel).read_bytes() == (ROOT / rel).read_bytes()
+    orig = ROOT / rel if rel.startswith("examples/") else ORIG / rel
+    assert (PORT / rel).read_bytes() == orig.read_bytes()
 
 
 @pytest.mark.parametrize("name", NATIVE)

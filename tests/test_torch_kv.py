@@ -139,12 +139,16 @@ class KVTestCluster:
         raise TimeoutError(f"region {region_id} not on all stores")
 
 
-def torch_engine(max_groups: int, tick_interval_ms: int = 2):
-    """A factory of port engines ticking on the CPU."""
+def torch_engine(max_groups: int, tick_interval_ms: int = 2,
+                 backend: str = "torch"):
+    """A factory of port engines ticking on the CPU: the torch tick's
+    plain version, or with ``backend="numpy"`` the engine's numpy tick
+    (the one the JAX package's engine runs on a CPU host)."""
     def factory():
         return MultiRaftEngine(TickOptions(
             max_groups=max_groups, max_peers=4,
-            tick_interval_ms=tick_interval_ms, device="cpu"))
+            tick_interval_ms=tick_interval_ms, device="cpu",
+            backend=backend))
     return factory
 
 

@@ -51,12 +51,12 @@ from tests.test_torch_kv import DISK_BUDGET, KVTestCluster, torch_engine
 DRIVES = ["timers", "engine"]
 
 
-def engine_kw(drive: str) -> dict:
+def engine_kw(drive: str, backend: str = "torch") -> dict:
     """Cluster keywords for a drive: "engine" gives every store a port
     MultiRaftEngine on the CPU with headroom for splits."""
     if drive == "engine":
         return {"multi_raft_engine_factory": torch_engine(
-            16, tick_interval_ms=10)}
+            16, tick_interval_ms=10, backend=backend)}
     return {}
 
 
@@ -1096,8 +1096,9 @@ def test_pick_move_balanced_fleet_is_left_alone():
 
 
 @contextlib.asynccontextmanager
-async def kv_cluster(n=3, regions=None, drive="timers", **kw):
-    c = KVTestCluster(n, regions=regions, **engine_kw(drive), **kw)
+async def kv_cluster(n=3, regions=None, drive="timers", backend="torch",
+                     **kw):
+    c = KVTestCluster(n, regions=regions, **engine_kw(drive, backend), **kw)
     await c.start_all()
     try:
         yield c
@@ -1276,8 +1277,16 @@ async def test_move_self_leader_source_hands_off_first(drive):
 
 @pytest.mark.parametrize("drive", DRIVES)
 async def test_move_races_leader_kill(drive):
+    """The engine drive ticks with the engine's numpy tick, the tick the
+    JAX package's engine runs on a CPU host: with the torch tick's plain
+    version (0.7-1.4 ms a tick on the CPU against 0.11-0.23 ms) the move
+    takes 35-87 ms instead of 10-20, the kill at 50 ms lands inside it,
+    and 4 of 135 runs under six-way load stalled on the source-leader
+    hand-off that the reference's ``apply_move`` aims at the killed
+    store (ROADMAP queue C)."""
     async with kv_cluster(4, regions=[Region(id=1, peers=EP4[:3])],
-                          tmp_path=None, drive=drive) as c:
+                          tmp_path=None, drive=drive,
+                          backend="numpy") as c:
         leader = await c.wait_region_leader(1)
         leader_ep = leader.node.server_id.endpoint
         src = next(p for p in leader.region.peers

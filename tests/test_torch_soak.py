@@ -19,6 +19,7 @@ from pathlib import Path
 
 import pytest
 
+from tpuraft_torch import options
 from tpuraft_torch.examples import soak
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -83,6 +84,13 @@ async def test_lifecycle_soak_on_the_cpu(tmp_path, monkeypatch):
 
     monkeypatch.setattr(soak, "StoreEngineOptions", functools.partial(
         soak.StoreEngineOptions, disk_budget_bytes=DISK_BUDGET))
+    # the engine's numpy tick, the one the JAX package's engine runs on a
+    # CPU host: with the torch tick's plain version each tick costs 4-5x
+    # as much, the soak's one event loop serves a fraction of the ops,
+    # and under six-way load the PD's hot detector (8 live reporters)
+    # lost the race to the cold merges in 5 of 12 runs (ROADMAP queue C)
+    monkeypatch.setattr(options, "TickOptions", functools.partial(
+        options.TickOptions, backend="numpy"))
     r = await asyncio.wait_for(soak.run_lifecycle_soak(
         LIFECYCLE_SECS, 4, 12, 11, str(tmp_path), False, device="cpu"), 110)
     assert r["lifecycle_ok"], r

@@ -766,6 +766,7 @@ class _TickStaging:
         # the tick's inputs: typed views of the device buffer, made once
         self.dev_views = {name: self.dev[a:b].view(dtype).view(shape)
                           for name, dtype, shape, a, b in layout}
+        # graftcheck: allow(host-sync) — a view of the host buffer, no copy
         hnp = self.host.numpy()
         self.host_views = {
             name: hnp[a:b].view(np.int32 if dtype == torch.int32 else bool)
@@ -812,6 +813,7 @@ class _TickStaging:
         if self.out_host is not self.out_dev:
             self.out_host.copy_(self.out_dev, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
+        # graftcheck: allow(host-sync) — the tick's one D2H copy, landed
         host = self.out_host.numpy().copy()
         return _NpOutputs(**unpack_outputs_numpy(host, self.g))
 

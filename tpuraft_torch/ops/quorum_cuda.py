@@ -14,8 +14,9 @@ the device of its tensors:
 show that its main path went through the kernel.
 
 :func:`load` builds one shared library from every source under ``csrc/``
-(the fused quorum, the fused tick of :mod:`tpuraft_torch.ops.tick` and
-the warp-segmented core they share) with ``nvcc`` for ``sm_90a`` at
+(the fused quorum, the fused tick of :mod:`tpuraft_torch.ops.tick`, the
+warp-segmented core they share and the replica quorum of
+:mod:`tpuraft_torch.parallel.collective`) with ``nvcc`` for ``sm_90a`` at
 first use, one compiler process per source, all started together, and
 loads it with ``ctypes``.
 """
@@ -44,7 +45,8 @@ MAX_PEERS = 32  # one warp: P <= 32 slots per group, one lane each
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fused_quorum.cu", "fused_tick.cu")  # each a compiler process
+# each a compiler process
+_SOURCES = ("fused_quorum.cu", "fused_tick.cu", "replica_quorum.cu")
 _HEADERS = ("quorum_core.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -144,6 +146,10 @@ def load() -> ctypes.CDLL:
                            + [ctypes.c_void_p, ctypes.c_int] * 4
                            + [ctypes.c_int32] + [ctypes.c_void_p] * 4
                            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fn = lib.tpuraft_replica_quorum
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p]
             fn.restype = ctypes.c_int
             if lib.tpuraft_fused_quorum_max_peers() != MAX_PEERS:
                 raise RuntimeError("kernel library and wrapper disagree "

@@ -271,8 +271,9 @@ def _launch_fused_tick(state: GroupState, now_ms, params: TickParams,
             raise ValueError(f"raft_tick: {f.name} must be a scalar or a "
                              f"contiguous [{g}] row, got {list(t.shape)}")
         ptrs += [t.data_ptr(), t.dim()]  # stride 0 for a scalar, 1 for a row
-    # a 0-d tensor is read by value; a Python int wraps to int32 as torch
-    # casts it
+    # a 0-d tensor is read by value; a Python int (the engine's host
+    # clock) wraps to int32 as torch casts it
+    # graftcheck: allow(host-sync) — the tick's clock, read once by value
     now = (int(now_ms) + 2**31) % 2**32 - 2**31
     new = ([deadlines[i].data_ptr() for i in range(3)]
            if deadlines is not None else [None] * 3)

@@ -39,8 +39,8 @@ Phases (any failure exits non-zero; none is caught):
         engine, file:// snapshots (snap_due every 30 s), a 10 s election
         timeout with elections released over four timeouts once every
         store is up, SAFE reads, a batching client: 16,384
-        1,000-byte records loaded, YCSB-A (50/50 read/update, zipfian
-        0.99) from 64 workers, one store stopped (its regions re-elect
+        1,000-byte records loaded, 8,192 operations of YCSB-A (50/50
+        read/update, zipfian 0.99) from 64 workers, one store stopped (its regions re-elect
         and take a write) and restarted from its directory (log replay
         and snapshot installs); every record read back equal on all 3
         replicas, the recorded history linearizable, device fences and
@@ -791,6 +791,10 @@ DENSITY_ETO_MS = 10000
 # replicas cut the mix from 423 to 40-57 ops/s (bench_torch_kv.py)
 KV_SNAPSHOT_SECS = 30
 KV_DISK_BUDGET = 4 << 30   # explicit: statvfs may read a shared disk FULL
+# leg A's YCSB-A mix, in operations: half the records, cut from all of
+# them to keep the script under 800 s with phase 11 (at 132-209 ops/s the
+# full mix took 78-124 s)
+KV_MIX_OPS = 8192
 
 
 def engine_shape(n_regions: int, n_stores: int = 3) -> tuple[int, int]:
@@ -1104,8 +1108,8 @@ async def kv_leg_store(args, quorum_cuda, tick, data_path) -> dict:
         res["load_s"] = time.perf_counter() - t0
 
         mix = []
-        for i, r in zip(zipf_keys(rng, n_keys, n_keys),
-                        rng.random(n_keys)):
+        n_mix = n_keys if args.cpu else KV_MIX_OPS
+        for i, r in zip(zipf_keys(rng, n_keys, n_mix), rng.random(n_mix)):
             mix.append(("r", keys[i], None) if r < 0.5
                        else ("w", keys[i], value(op)))
             op += 1

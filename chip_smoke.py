@@ -100,8 +100,8 @@ Phases (any failure exits non-zero; none is caught):
         {1, 2, 4, 7, 33} at G=1,000, on edge planes (all-zero columns,
         ties, one row ahead, values up to 2^28 - 1, unattested rows at 0),
         then timed;
-     b. in a process of its own started beside phase 8 and read after
-        it: ReplicaPlaneCluster(3, 1024, device="cuda") with
+     b. in a process of its own after phase 8, beside no other phase:
+        ReplicaPlaneCluster(3, 1024, device="cuda") with
         memory:// logs, the in-process transport and a 2 s election
         timeout: every group elects, takes 3 waves of 2 writes, loses the
         replica that leads the fewest groups, re-elects and takes one
@@ -1682,7 +1682,7 @@ async def lifecycle_run(args, quorum_cuda, tick) -> dict:
         pds.append(self)
         return await pd_start(self, *a, **kw)
 
-    samples = []
+    samples, learned = [], []
 
     async def sampler(t0):
         late, last = 0.0, time.perf_counter()
@@ -1691,6 +1691,12 @@ async def lifecycle_run(args, quorum_cuda, tick) -> dict:
             now = time.perf_counter()
             late = max(late, now - last - 0.05)
             last = now
+            if not learned and pds and len(
+                    pds[0].fsm.regions) >= LIFECYCLE_REGIONS:
+                # the soak gives its stores 15 s to report every region
+                learned.append(now - t0)
+                log(f"[8] the PD learned the {LIFECYCLE_REGIONS} regions "
+                    f"{now - t0:.3f} s into the soak")
             if now - t0 >= LIFECYCLE_SAMPLE_S * (len(samples) + 1):
                 row = lifecycle_sample(now - t0, cluster[0] if cluster
                                        else None, pds[0] if pds else None)
@@ -1721,6 +1727,7 @@ async def lifecycle_run(args, quorum_cuda, tick) -> dict:
         shutil.rmtree(data, ignore_errors=True)
     res = {"regions": LIFECYCLE_REGIONS, "duration_s": secs,
            "wall_s": time.perf_counter() - t0,
+           "pd_learned_s": learned[0] if learned else None,
            "launches": tick.LAUNCHES,  # read right after the path
            "fused_quorum_launches": quorum_cuda.LAUNCHES,
            "engine_ticks": sum(e.ticks for e in engines),
@@ -2557,10 +2564,11 @@ async def replica_plane_run(args) -> dict:
         writes += await write_all(leader_of, 1)
         await read_back()
         failover_s = time.perf_counter() - t0
-        ticks, advances = c.plane.ticks, c.plane.commit_advances
     finally:
         await c.stop_all()
+    # read together: the plane may tick while the nodes stop
     launches = collective.LAUNCHES  # read right after the path
+    ticks, advances = c.plane.ticks, c.plane.commit_advances
     res = {"replicas": 3, "groups": n, "device": "cpu" if args.cpu
            else "cuda", "launches": launches, "plane_ticks": ticks,
            "commit_advances": advances, "acked_writes": writes,
@@ -2580,16 +2588,17 @@ async def replica_plane_run(args) -> dict:
     return res
 
 
-def start_replica_plane(args) -> dict:
-    """Start 11(b) in a process of its own (`chip_smoke.py
-    --replica-child OUT`) beside phase 8, while this process only waits
-    for the lifecycle child: its one event loop drives 3 x 1,024 raft
-    nodes on their own timers, a host-bound load that would otherwise
-    add its whole wall time to the script's, and that beside phases 5-6
-    slowed their single loops. The kernel library is built (phase 1);
-    the child loads it."""
+def phase_replica_plane(args) -> dict:
+    """11(b) in a process of its own (`chip_smoke.py --replica-child
+    OUT`), after phase 8 and beside no other phase: its one event loop
+    drives 3 x 1,024 raft nodes on their own timers and a launch and a
+    device copy every plane tick. Beside phases 5-6 it slowed their
+    single loops; beside phase 8's start-up it shared the host with the
+    lifecycle soak's first elections, and one such run ended at the
+    soak's 15 s wait for the region set. A fresh interpreter
+    shares no heap with phases 5-8. The kernel library is built (phase
+    1); the child loads it and holds 11(b)'s gates itself."""
     import tempfile
-    import threading
 
     fd, out = tempfile.mkstemp(prefix="tpuraft_torch_replica_",
                                suffix=".json")
@@ -2597,47 +2606,24 @@ def start_replica_plane(args) -> dict:
     cmd = [sys.executable, os.path.abspath(__file__), "--replica-child",
            out] + (["--cpu", "--groups", str(args.groups or 16)]
                    if args.cpu else [])
-    child = {"out": out, "t0": time.perf_counter(),
-             "proc": subprocess.Popen(cmd)}
-
-    def reap():
-        child["proc"].wait()
-        child["wall_s"] = time.perf_counter() - child["t0"]
-
-    child["reaper"] = threading.Thread(target=reap, daemon=True)
-    child["reaper"].start()
-    log(f"[11] the replica plane started beside phase 8 (pid "
-        f"{child['proc'].pid})")
-    return child
-
-
-def stop_replica_plane(child) -> None:
-    if child["proc"].poll() is None:
-        child["proc"].kill()
-    child["reaper"].join(30)
-    if os.path.exists(child["out"]):
-        os.unlink(child["out"])
-
-
-def phase_replica_plane(child) -> dict:
-    """11(b)'s result: the child's exit code and its record (its gates
-    are held in the child)."""
-    child["reaper"].join(max(0.0, child["t0"] + REPLICA_CHILD_SLACK_S
-                             - time.perf_counter()))
-    check(not child["reaper"].is_alive(), "the replica plane did not end "
-          f"within {REPLICA_CHILD_SLACK_S} s")
-    rc = child["proc"].returncode
-    check(rc == 0, f"the replica-plane child exited {rc}")
-    with open(child["out"]) as f:
-        res = json.load(f)
-    res["child_wall_s"] = child["wall_s"]
+    t0 = time.perf_counter()
+    try:
+        # on a timeout the child is killed and the phase fails
+        rc = subprocess.run(cmd, timeout=REPLICA_CHILD_SLACK_S).returncode
+        check(rc == 0, f"the replica-plane child exited {rc}")
+        with open(out) as f:
+            res = json.load(f)
+    finally:
+        os.unlink(out)
+    res["child_wall_s"] = time.perf_counter() - t0
     log(f"[11] replica plane: 3 x {res['groups']} groups elected in "
         f"{res['elect_s']:.3f} s, {res['acked_writes']} acked writes read "
         f"back from every surviving replica, the replica leading "
         f"{res['victim_led']} groups stopped and all re-elected in "
         f"{res['reelect_s']:.3f} s (failover {res['failover_s']:.3f} s); "
         f"{res['launches']} replica-quorum launches for "
-        f"{res['plane_ticks']} plane ticks")
+        f"{res['plane_ticks']} plane ticks; the child took "
+        f"{res['child_wall_s']:.3f} s")
     return res
 
 
@@ -2700,7 +2686,6 @@ def main() -> int:
         log("[quick] build and compare done")
         return 0
     faults = start_fault_plane(args)
-    replica = None
     try:
         rows = phase_kernel(args, torch, quorum_cuda, dev)
         tick_rows = phase_tick(args, torch, dev)
@@ -2709,15 +2694,12 @@ def main() -> int:
         e2e = asyncio.run(phase_e2e(args, torch, quorum_cuda, tick, dev))
         kv = asyncio.run(phase_kv(args, quorum_cuda, tick))
         soak_res = asyncio.run(phase_soak(args, quorum_cuda, tick))
-        replica = start_replica_plane(args)
         life = phase_lifecycle(args)
-        replica_res = phase_replica_plane(replica)
+        replica_res = phase_replica_plane(args)
         fleet = asyncio.run(phase_fleet(args))
         phase_fault_plane(faults)
     finally:
         stop_fault_plane(faults)
-        if replica is not None:
-            stop_replica_plane(replica)
     paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
              "phase6_kv_lease_reads": kv["lease"],
              "phase7_soak": soak_res, "phase8_lifecycle": life}

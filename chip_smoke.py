@@ -7,8 +7,8 @@
 
 Phases (any failure exits non-zero; none is caught):
   1. the card (nvidia-smi name and power limit), the build of the
-     kernel library (fused quorum, fused tick and replica quorum, one
-     nvcc per source)
+     kernel library (fused quorum, fused tick, replica quorum and
+     deadline fold, one nvcc per source)
      and the build of the native engines from tpuraft_torch/native
      (logstore, multilog, kvstore, the epoll transport; make, g++, zlib);
   2. the fused-quorum CUDA kernel against its plain torch version on the
@@ -39,7 +39,7 @@ Phases (any failure exits non-zero; none is caught):
         engine, file:// snapshots (snap_due every 30 s), a 10 s election
         timeout with elections released over four timeouts once every
         store is up, SAFE reads, a batching client: 16,384
-        1,000-byte records loaded, 8,192 operations of YCSB-A (50/50
+        1,000-byte records loaded, 4,096 operations of YCSB-A (50/50
         read/update, zipfian 0.99) from 64 workers, one store stopped (its regions re-elect
         and take a write) and restarted from its directory (log replay
         and snapshot installs); every record read back equal on all 3
@@ -106,7 +106,29 @@ Phases (any failure exits non-zero; none is caught):
         timeout: every group elects, takes 3 waves of 2 writes, loses the
         replica that leads the fewest groups, re-elects and takes one
         more write; every surviving replica's log equals the acknowledged
-        writes, and every plane tick is one replica-quorum launch.
+        writes, and every plane tick is one replica-quorum launch;
+ 12. group-axis mesh sharding (the JAX package's tpuraft/parallel/mesh.py
+     and the engine's mesh mode), after 11(b), alone; each shard on its
+     own card where the machine has enough, else the shards share
+     cuda:0 (the script names the list; a line records it):
+     a. the sharded tick at 2, 4 and 8 shards against the single-device
+        fused tick at G=16,384 P=8 and G=65,536 P=4, 8 rounds with state
+        carried, bit for bit, one launch a shard; the deadline-fold
+        kernel against its plain version and the host scan (8 trials and
+        the sentinel) at G=65,536 over 8 shards, then timed; the replica
+        quorum over a 2 x 4 grid against one device at R=4 G=16,384;
+     b. bench_multichip.py's mesh lanes: one engine of 65,536 groups,
+        P=4, over 8 shards, 10 s of stub controls: the witness clamp
+        holds and engages, the stepdown, fence and election lanes fire,
+        no fence stays pending, fused-tick launches = engine ticks x 8,
+        fold launches = folds x 8;
+     c. phase 5's fabric (3 x 256 groups, cut from 1,024) with every
+        engine over 4 shards: elect, write, read back, stop the endpoint
+        leading the fewest groups, re-elect, write again; launches =
+        ticks x 4, fold launches = folds x 4;
+     d. the replica plane over a 2 x 4 grid (4 replicas x 8 groups, 3
+        waves of 5 writes, one replica stopped, one more write): every
+        log equals the acknowledged writes, launches = plane ticks x 4.
 With --cpu the server processes of legs C and D and of phase 9 run
 their engines on the CPU. The last four lines are the native libraries,
 the card, the kernel table and the result, the last two JSON.
@@ -619,7 +641,11 @@ def make_fsm_class():
     return LogFSM
 
 
-async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
+async def phase_e2e(args, torch, quorum_cuda, tick, dev, shards=0,
+                    tag="5", groups=1024) -> dict:
+    """Phase 5 (and, with ``shards``, phase 12(c): every engine in mesh
+    mode over that many shards, and the endpoint leading the fewest
+    groups is the one stopped)."""
     from tpuraft_torch.conf import Configuration
     from tpuraft_torch.core.engine import MultiRaftEngine
     from tpuraft_torch.core.node import Node, State
@@ -629,7 +655,7 @@ async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
     from tpuraft_torch.rpc.transport import (InProcNetwork, InProcTransport,
                                              RpcServer)
 
-    n_groups = (args.groups or 16) if args.cpu else 1024
+    n_groups = (args.groups or 16) if args.cpu else groups
     n_writes, eto_ms = 8, 2000
     loop = asyncio.get_running_loop()
     rng = np.random.default_rng(SEED + 7)
@@ -640,8 +666,19 @@ async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
     net = InProcNetwork()
     engines, nodes, fsms = {}, {}, {}
 
+    from tpuraft_torch.ops import deadline_fold
+
+    fold_calls = [0]
+
+    def counted(fold):
+        def run(*rows):
+            fold_calls[0] += 1
+            return fold(*rows)
+        return run
+
     tick.LAUNCHES = 0  # the main path's counts start here
     quorum_cuda.LAUNCHES = 0
+    deadline_fold.LAUNCHES = 0
     t0 = time.perf_counter()
     for ep in eps:
         server = RpcServer(ep.endpoint)
@@ -649,10 +686,16 @@ async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
         net.bind(server)
         transport = InProcTransport(net, ep.endpoint)
         opts = TickOptions(max_groups=n_groups + 4)
-        if args.cpu:
+        if shards:
+            opts.mesh_devices = shards
+            opts.device = mesh_of(args, torch, shards)
+        elif args.cpu:
             opts.device = "cpu"
         engine = MultiRaftEngine(opts)
         await engine.start()
+        if shards:
+            check(engine._deadline_fold is not None, "mesh mode off")
+            engine._deadline_fold = counted(engine._deadline_fold)
         engines[ep.endpoint] = engine
         factory = engine.ballot_box_factory()
         for gid in groups:
@@ -721,12 +764,18 @@ async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
         await read_back(list(fsms), payloads)
         write_s = time.perf_counter() - t0
         check(acked == n_groups * n_writes, "write count")
-        log(f"[5] {len(eps)} x {n_groups} groups elected in {elect_s:.3f} s; "
+        log(f"[{tag}] {len(eps)} x {n_groups} groups elected in "
+            f"{elect_s:.3f} s; "
             f"{acked} acked writes read back in order, once, from all 3 "
             f"replicas ({write_s:.3f} s)")
 
         # one endpoint stops: every group it led re-elects on the others
         dead = eps[0]
+        if shards:  # the endpoint leading the fewest groups
+            led = {ep: 0 for ep in eps}
+            for n in leader_of.values():
+                led[n.server_id] += 1
+            dead = min(eps, key=led.__getitem__)
         lost = sum(1 for n in leader_of.values() if n.server_id == dead)
         t0 = time.perf_counter()
         net.stop_endpoint(dead.endpoint)
@@ -744,7 +793,7 @@ async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
         want = {g: payloads[g] + more[g] for g in groups}
         await read_back(list(fsms), want)
         failover_s = time.perf_counter() - t0
-        log(f"[5] endpoint {dead.endpoint} stopped: {lost} groups lost "
+        log(f"[{tag}] endpoint {dead.endpoint} stopped: {lost} groups lost "
             f"their leader, all {n_groups} groups re-elected and "
             f"committed {acked2} more writes on both survivors "
             f"({failover_s:.3f} s)")
@@ -755,6 +804,7 @@ async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
             await e.shutdown()
     launches = tick.LAUNCHES  # read right after the main path
     quorum_launches = quorum_cuda.LAUNCHES
+    fold_launches = deadline_fold.LAUNCHES
     hist = [e.tick_histograms()["tick_device_ms"] for e in all_engines]
     res = {
         "launches": launches,
@@ -762,16 +812,24 @@ async def phase_e2e(args, torch, quorum_cuda, tick, dev) -> dict:
         "engine_ticks": sum(e.ticks for e in all_engines),
         "commit_advances": sum(e.commit_advances for e in all_engines),
         "eager_commits": sum(e.eager_commits for e in all_engines),
+        "shards": max(shards, 1), "fold_launches": fold_launches,
+        "fold_calls": fold_calls[0], "victim_led": lost,
         "boot_s": boot_s, "elect_s": elect_s, "write_s": write_s,
         "failover_s": failover_s,
         "tick_device_ms_p50": [h["p50"] for h in hist],
         "tick_device_ms_p99": [h["p99"] for h in hist],
     }
-    log("[5] " + json.dumps(res))
+    log(f"[{tag}] " + json.dumps(res))
     if not args.cpu:
-        check(launches > 0 and launches == res["engine_ticks"],
+        n = max(shards, 1)
+        check(launches > 0 and launches == res["engine_ticks"] * n,
               f"{res['engine_ticks']} engine ticks made {launches} "
-              f"fused-tick launches (one each expected)")
+              f"fused-tick launches ({n} each expected)")
+        check(fold_launches == fold_calls[0] * shards,
+              f"{fold_calls[0]} deadline folds made {fold_launches} fold "
+              f"launches ({shards} each expected)")
+    if shards:
+        check(fold_calls[0] > 0, "the mesh engines never folded a deadline")
     return res
 
 
@@ -791,10 +849,11 @@ DENSITY_ETO_MS = 10000
 # replicas cut the mix from 423 to 40-57 ops/s (bench_torch_kv.py)
 KV_SNAPSHOT_SECS = 30
 KV_DISK_BUDGET = 4 << 30   # explicit: statvfs may read a shared disk FULL
-# leg A's YCSB-A mix, in operations: half the records, cut from all of
-# them to keep the script under 800 s with phase 11 (at 132-209 ops/s the
-# full mix took 78-124 s)
-KV_MIX_OPS = 8192
+# leg A's YCSB-A mix, in operations: a quarter of the records, cut from
+# all of them to keep the script under 800 s with phase 11 (at 132-209
+# ops/s the full mix took 78-124 s) and from half with phase 12 (8,192
+# took 59.8-80.0 s)
+KV_MIX_OPS = 4096
 
 
 def engine_shape(n_regions: int, n_stores: int = 3) -> tuple[int, int]:
@@ -1569,8 +1628,9 @@ async def phase_soak(args, quorum_cuda, tick) -> dict:
 # -- phase 8: the region lifecycle ----------------------------------------------
 
 # BENCH_SOAK.json's run_lifecycle is --lifecycle --duration 300 --seed 11
-# --regions 12; the duration is cut to fit the call
-LIFECYCLE_SECS = 120
+# --regions 12; the duration is cut to fit the call (120 s until phase 12
+# came; at 20 s it passed its gates 6 of 6 on the card)
+LIFECYCLE_SECS = 60
 LIFECYCLE_SEED = 11
 LIFECYCLE_REGIONS = 12
 
@@ -2627,6 +2687,541 @@ def phase_replica_plane(args) -> dict:
     return res
 
 
+# -- phase 12: group-axis mesh sharding -----------------------------------------
+
+# 12(a): the sharded tick at S shards against the single-device fused tick
+MESH_SHARD_COUNTS = (2, 4, 8)
+MESH_TICK_SHAPES = [(16384, 8), (65536, 4)]
+MESH_TICK_ROUNDS = 8
+MESH_FOLD_G = 65536         # the fold: 8 trials at G = 65,536 split 8 ways
+MESH_FOLD_TRIALS = 8
+MESH_SHARDS = 8
+MESH_REPLICA_SHAPE = (4, 16384)   # B5 over a 2 x 4 grid
+MESH_GRID = (2, 4)
+# 12(b): bench_multichip.py --scale's rung: 65,536 groups, P=4, 8 shards
+MESH_ENGINE_GROUPS = 65536
+MESH_ENGINE_SECS = 10
+# 12(c): phase 5's fabric with every engine over 4 shards, cut from 1,024
+# groups an endpoint to keep the script under 800 s (1,024 took 37-45 s)
+MESH_E2E_SHARDS = 4
+MESH_E2E_GROUPS = 256
+# 12(d): tests/test_replica_plane.py's deployment on the 2 x 4 grid
+MESH_PLANE_REPLICAS, MESH_PLANE_GROUPS = 4, 8
+MESH_PLANE_WAVES, MESH_PLANE_WRITES = 3, 5
+
+
+def mesh_of(args, torch, n) -> list:
+    """The N shard devices this phase names: each its own card where
+    the machine has N, else N shards sharing cuda:0 (the engine never
+    picks a shared card itself: the list names it); N logical shards of
+    the CPU in the rehearsal."""
+    if args.cpu:
+        return ["cpu"] * n
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * n
+
+
+def mesh_record(mesh) -> dict:
+    devs = [str(d) for d in mesh]
+    return {"shards": len(devs), "distinct_cards": len(
+        {d for d in devs if d.startswith("cuda")}), "devices": devs}
+
+
+def fold_rows(rng, g):
+    """Seeded deadline-fold rows: every role, some quiescent and some
+    uncontrolled slots, deadlines across the int32 range."""
+    return (rng.integers(0, 4, g).astype(np.int32), rng.random(g) < 0.3,
+            rng.random(g) < 0.7,
+            rng.integers(-(2**31), 2**31 - 1, g, dtype=np.int64)
+            .astype(np.int32),
+            rng.integers(0, 1 << 30, g).astype(np.int32),
+            rng.integers(0, 1 << 30, g).astype(np.int32))
+
+
+def host_fold(role, quiescent, has_ctrl, elect, hb, stepdown) -> int:
+    """The engine's host scan (MultiRaftEngine._next_deadline without a
+    fold) in the fold's int32 domain."""
+    awake = has_ctrl & ~quiescent
+    ec, ld = awake & (role <= 1), awake & (role == 2)
+    want = INT32_MAX
+    if ec.any():
+        want = min(want, int(elect[ec].min()))
+    if ld.any():
+        want = min(want, int(hb[ld].min()), int(stepdown[ld].min()))
+    return want
+
+
+def fold_bound_ms(g) -> float:
+    """Least time for one fold: four int32 and two bool rows read once,
+    the 4-byte result written once."""
+    return (18 * g + 4) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_mesh_kernels(args, torch, dev) -> dict:
+    """12(a): on the card, bit for bit: the sharded tick at 2, 4 and 8
+    shards against the single-device fused tick (8 rounds, state
+    carried, a seeded perturbation every second round); the fold kernel
+    against its plain version and the host scan (8 trials and the
+    all-uncontrolled sentinel) at G = 65,536 split 8 ways, then timed;
+    the replica quorum over a 2 x 4 grid against one device."""
+    from tpuraft_torch.ops import deadline_fold as dfold
+    from tpuraft_torch.ops import tick
+    from tpuraft_torch.parallel import collective
+    from tpuraft_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(SEED + 20)
+    res = {"mesh": mesh_record(pmesh.make_mesh(
+        MESH_SHARDS, mesh_of(args, torch, MESH_SHARDS)))}
+    log("[12] " + json.dumps(res["mesh"]))
+    for g, p in ([(64, 8), (256, 4)] if args.cpu else MESH_TICK_SHAPES):
+        for s in MESH_SHARD_COUNTS:
+            mesh = pmesh.make_mesh(s, mesh_of(args, torch, s))
+            prm = (rng.integers(300, 1200, g), rng.integers(50, 200, g),
+                   rng.integers(200, 1000, g), rng.integers(0, 2, g) * 700)
+            params = tick.tick_params_from_numpy(*prm, device=dev)
+            sparams = pmesh.shard_params(params, mesh, g)
+            local = tick.group_state_from_numpy(
+                rand_tick_fields(rng, g, p), device=dev)
+            state = pmesh.shard_group_state(local, mesh)
+            run = pmesh.sharded_tick(mesh)
+            now = int(rng.integers(0, 1000))
+            for r in range(MESH_TICK_ROUNDS):
+                now += int(rng.integers(120, 400))
+                before = tick.LAUNCHES
+                ns, out = run(state, now, sparams)
+                launched = tick.LAUNCHES - before
+                nl, ol = tick.raft_tick(local, now, params)
+                for what, a, b in (("state", pmesh.gather_shards(ns), nl),
+                                   ("output", pmesh.gather_shards(out), ol)):
+                    an, bn = tick.outputs_to_numpy(a), tick.outputs_to_numpy(b)
+                    for k in bn:
+                        check(np.array_equal(an[k], bn[k]),
+                              f"{s}-shard tick G={g} P={p} round {r}: "
+                              f"{what} {k} differs from the single device")
+                if not args.cpu:
+                    check(launched == s, f"{s} shards made {launched} "
+                          f"fused-tick launches")
+                state, local = ns, nl
+                if r % 2 == 1:
+                    h = tick.outputs_to_numpy(nl)
+                    h["match_rel"] = (h["match_rel"] + rng.integers(
+                        0, 6, (g, p))).astype(np.int32)
+                    h["last_ack"] = np.where(rng.random((g, p)) < 0.5, now,
+                                             h["last_ack"]).astype(np.int32)
+                    h["granted"] = rng.random((g, p)) < 0.4
+                    h["fence_start"] = np.where(
+                        rng.random(g) < 0.3, now - rng.integers(0, 200, g),
+                        h["fence_start"]).astype(np.int32)
+                    local = tick.group_state_from_numpy(h, device=dev)
+                    state = pmesh.shard_group_state(local, mesh)
+        log(f"[12] sharded tick G={g} P={p} at {MESH_SHARD_COUNTS} shards: "
+            f"{MESH_TICK_ROUNDS} rounds, all 11 outputs and 15 state fields "
+            f"bit-exact vs the single-device tick, one launch a shard")
+
+    g = 512 if args.cpu else MESH_FOLD_G
+    mesh = pmesh.make_mesh(MESH_SHARDS, mesh_of(args, torch, MESH_SHARDS))
+    fold = pmesh.sharded_deadline_fold(mesh)
+    err = 0
+    trials = [fold_rows(rng, g) for _ in range(MESH_FOLD_TRIALS)]
+    none = (np.full(g, 2, np.int32), np.zeros(g, bool), np.zeros(g, bool),
+            *trials[0][3:])
+    for i, rows in enumerate([*trials, none]):
+        want = host_fold(*rows)
+        before = dfold.LAUNCHES
+        got = fold(*rows)
+        check(args.cpu or dfold.LAUNCHES - before == MESH_SHARDS,
+              f"the fold made {dfold.LAUNCHES - before} launches")
+        check(got == want, f"fold trial {i}: {got} != host scan {want}")
+        for sl in pmesh.group_slices(g, MESH_SHARDS):
+            part = [torch.from_numpy(np.ascontiguousarray(x[sl])).to(dev)
+                    for x in rows]
+            k = dfold.deadline_fold(*part)
+            plain = dfold.deadline_fold_reference(*part)
+            err = max(err, abs(int(k) - int(plain)))
+            check(int(k) == int(plain) == host_fold(*(x[sl] for x in rows)),
+                  f"fold trial {i}: kernel {int(k)} vs plain {int(plain)}")
+    check(fold(*none) == INT32_MAX, "the all-uncontrolled fold is not the "
+          "sentinel")
+    log(f"[12] deadline fold G={g} over {MESH_SHARDS} shards: "
+        f"{MESH_FOLD_TRIALS} trials and the sentinel equal to the host scan; "
+        f"every shard's kernel equal to its plain version")
+    rows = []
+    for gs in ((g // MESH_SHARDS, g) if not args.cpu else (g // 8,)):
+        part = [torch.from_numpy(np.ascontiguousarray(x[:gs])).to(dev)
+                for x in trials[0]]
+        buf = torch.empty(3, dtype=torch.int32, device=dev)
+        row = {"G": gs, "max_abs_err": err, "bound_ms": fold_bound_ms(gs),
+               "ms": None, "plain_ms": None, "eager_ms": None}
+        if not (args.cpu or args.quick):
+            reps = max(1, TIMED_LAUNCHES // 100)
+            row["ms"] = time_graph(
+                torch, lambda: dfold.deadline_fold(*part, out=buf),
+                replays=reps)
+            row["plain_ms"] = time_graph(
+                torch, lambda: dfold.deadline_fold_reference(*part),
+                replays=reps)
+            row["eager_ms"] = time_events(
+                torch, lambda: dfold.deadline_fold(*part, out=buf),
+                TIMED_LAUNCHES)
+        rows.append(row)
+        log(f"[12] deadline_fold G={gs}: " + ", ".join(
+            f"{k}={v}" for k, v in row.items() if k.endswith("ms")))
+    res["fold_rows"] = rows
+
+    r, g = (4, 64) if args.cpu else MESH_REPLICA_SHAPE
+    devs = mesh_of(args, torch, MESH_GRID[0] * MESH_GRID[1])
+    grid = [devs[i * MESH_GRID[1]:(i + 1) * MESH_GRID[1]]
+            for i in range(MESH_GRID[0])]
+    match, granted = replica_inputs(rng, r, g)
+    one_c, one_v = collective.replicated_tick(r, device=dev)(match, granted)
+    before = collective.LAUNCHES
+    grid_c, grid_v = collective.replicated_tick(r, device=grid)(match, granted)
+    launched = collective.LAUNCHES - before
+    check(torch.equal(torch.cat([c.cpu() for c in grid_c]), one_c.cpu())
+          and torch.equal(torch.cat([v.cpu() for v in grid_v]), one_v.cpu()),
+          f"the replica quorum over the {MESH_GRID} grid differs from one "
+          f"device at R={r} G={g}")
+    if not args.cpu:
+        check(launched == MESH_GRID[1], f"the grid made {launched} "
+              f"replica-quorum launches")
+    log(f"[12] replica quorum R={r} G={g} over a {MESH_GRID[0]} x "
+        f"{MESH_GRID[1]} grid: bit-exact vs one device, one launch a "
+        f"groups-shard")
+    return res
+
+
+class StubReplicators:
+    def all(self):
+        return []
+
+
+class StubNode:
+    """The handlers the tick schedules, by reference; never run."""
+
+    replicators = StubReplicators()
+
+    def is_leader(self):
+        return True
+
+    def _check_dead_nodes(self):
+        pass
+
+    def _on_election_due(self):
+        pass
+
+    def _on_engine_elected(self):
+        pass
+
+    def _on_engine_quorum_dead(self):
+        pass
+
+    def _on_snapshot_due(self):
+        pass
+
+
+class StubCtrl:
+    """An EngineControl stand-in (bench_multichip.py's): the surface the
+    engine's apply pass touches, counting the deliveries it schedules."""
+
+    def __init__(self, engine, slot: int, counts: dict):
+        self.engine, self.slot, self.counts = engine, slot, counts
+        self.node = StubNode()
+
+    def _adopt_eto(self, eff_eto_ms: int) -> None:
+        pass
+
+    def push_election_deadline(self, now_ms=None) -> None:
+        e = self.engine
+        now = e.now_ms() if now_ms is None else now_ms
+        e.elect_deadline[self.slot] = now + int(e.eto_ms[self.slot])
+
+    def schedule(self, name: str, handler) -> None:
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def maybe_quiesce(self, now: int) -> None:
+        pass
+
+    def wake_from_quiescence(self, reason: str = "activity", *a, **kw):
+        pass
+
+
+class StubFence:
+    __slots__ = ("done",)
+    resolved = 0
+
+    def __init__(self):
+        self.done = False
+
+    def note_quorum(self):
+        self.done = True
+        StubFence.resolved += 1
+
+
+def host_next_deadline(e) -> int:
+    """MultiRaftEngine._next_deadline's host scan, on the engine's rows."""
+    hc = e.has_ctrl & ~e.quiescent
+    ec, ld = hc & (e.role <= 1), hc & (e.role == 2)
+    nxt = 1 << 60
+    if ec.any():
+        nxt = min(nxt, int(e.elect_deadline[ec].min()))
+    if ld.any():
+        nxt = min(nxt, int(e.hb_deadline[ld].min()),
+                  int(e.stepdown_deadline[ld].min()))
+    return nxt
+
+
+async def phase_mesh_engine(args, torch) -> dict:
+    """12(b): bench_multichip.py's mesh lanes (`_drive_mesh`, the --scale
+    rung) on the port: one engine of 65,536 groups, P=4, over 8 shards,
+    driven for MESH_ENGINE_SECS by stub controls; the witness clamp holds
+    and engages, the stepdown, fence and election lanes deliver, every
+    fence resolves, every engine tick is one fused-tick launch a shard,
+    and every deadline fold (one a round, as the engine's loop folds) one
+    fold launch a shard and equal to the host scan."""
+    from tpuraft_torch.conf import Configuration
+    from tpuraft_torch.core.engine import (ROLE_FOLLOWER, MultiRaftEngine)
+    from tpuraft_torch.ops import deadline_fold, tick
+    from tpuraft_torch.options import TickOptions
+
+    G = 1024 if args.cpu else MESH_ENGINE_GROUPS
+    secs = 2 if args.cpu else MESH_ENGINE_SECS
+    devs = mesh_of(args, torch, MESH_SHARDS)
+    rng = np.random.default_rng(SEED + 21)
+    tick.LAUNCHES = 0  # the path's counts start here
+    deadline_fold.LAUNCHES = 0
+    StubFence.resolved = 0
+    t_boot = time.perf_counter()
+    eng = MultiRaftEngine(TickOptions(
+        max_groups=G, max_peers=4, mesh_devices=MESH_SHARDS, device=devs,
+        tick_interval_ms=20, eager_commit=False,
+        density_aware_timeouts=False))
+    await eng.start()
+    check(eng._deadline_fold is not None, "mesh mode did not engage")
+    fold_calls = [0]
+    fold = eng._deadline_fold
+
+    def counted(*rows):
+        fold_calls[0] += 1
+        return fold(*rows)
+
+    eng._deadline_fold = counted
+    factory = eng.ballot_box_factory()
+    counts: dict = {}
+    commits = [0]
+    confs = {
+        "data": Configuration.parse("10.0.0.1:80,10.0.0.2:80,10.0.0.3:80"),
+        "witness": Configuration.parse(
+            "10.0.0.1:80,10.0.0.2:80,10.0.0.3:80/witness"),
+        # witness-majority rows: the degenerate state the commit clamp
+        # guards against (the probe slots)
+        "probe": Configuration.parse(
+            "10.0.0.1:80,10.0.0.2:80/witness,10.0.0.3:80/witness"),
+    }
+    self_peer = confs["data"].peers[0]
+    boxes = []
+    kinds = np.zeros(G, dtype=np.int8)
+    for s in range(G):
+        box = factory(lambda idx, _c=commits: _c.__setitem__(0, _c[0] + 1))
+        kind = "probe" if s % 64 == 62 else (
+            "witness" if s % 4 == 3 else "data")
+        kinds[s] = {"data": 0, "witness": 1, "probe": 2}[kind]
+        box.update_conf(confs[kind], Configuration())
+        eng.register_ctrl(StubCtrl(eng, s, counts), self_peer,
+                          eto_ms=500, hb_ms=100, lease_ms=450)
+        boxes.append(box)
+    now = eng.now_ms()
+    leaders = np.arange(G) % 2 == 0
+    lead = np.nonzero(leaders)[0]
+    for s in lead:
+        boxes[s].reset_pending_index(1)
+    eng.role[~leaders] = ROLE_FOLLOWER
+    eng.elect_deadline[:] = now + 3_600_000
+    sample = rng.choice(np.nonzero(~leaders)[0],
+                        size=min(64, int((~leaders).sum())), replace=False)
+    eng.elect_deadline[sample] = now + 50
+    eng.hb_deadline[:] = now + 3_600_000
+    eng.stepdown_deadline[:] = now + rng.integers(1, 250, G)
+    boot_s = time.perf_counter() - t_boot
+    probe = kinds == 2
+    pn = np.nonzero(probe)[0]
+    lead_probe = probe & leaders
+    eng.match_abs[np.ix_(pn, [1, 2])] = 9
+    eng.match_abs[pn, 0] = 3
+    drive = lead[~probe[lead]]
+
+    t0 = time.perf_counter()
+    rounds = 0
+    while time.perf_counter() - t0 < secs:
+        rounds += 1
+        now = eng.now_ms()
+        eng.last_ack[np.ix_(lead, [0, 1, 2])] = now
+        eng.match_abs[np.ix_(drive, [0, 1])] = rounds
+        eng.match_abs[drive, 2] = max(0, rounds - 1)
+        for s in lead[(rounds % 8)::16][:256]:
+            eng.arm_read_fence(int(s), StubFence())
+        eng.tick_once()
+        # the engine's loop folds once an iteration: so does the drive
+        nxt = eng._next_deadline()
+        check(nxt == host_next_deadline(eng),
+              f"round {rounds}: the fold {nxt} differs from the host scan")
+    elapsed = time.perf_counter() - t0
+    eng.last_ack[np.ix_(lead, [0, 1, 2])] = eng.now_ms()
+    eng.tick_once()  # the last fence wave sees a covering q_ack
+    await eng.shutdown()
+    launches, fold_launches = tick.LAUNCHES, deadline_fold.LAUNCHES
+    probe_commits = eng.commit_abs[lead_probe]
+    stats = eng.lane_stats()
+    hist = eng.tick_histograms()
+    res = {
+        "groups": G, "peers": 4, **mesh_record(eng._mesh),
+        "boot_s": boot_s, "duration_s": elapsed, "ticks": eng.ticks,
+        "ticks_per_sec": eng.ticks / elapsed, "drive_rounds": rounds,
+        "commits": commits[0], "commits_per_sec": commits[0] / elapsed,
+        "witness_groups": stats["witness_groups"],
+        "clamp_probe_groups": int(lead_probe.sum()),
+        "clamp_held": bool((probe_commits <= 3).all()),
+        "clamp_engaged": bool((probe_commits == 3).all()),
+        "witness_commit_ok": bool((eng.commit_abs[(kinds == 1) & leaders]
+                                   >= rounds - 1).all()),
+        "stepdown_ticks": stats["stepdown_ticks"],
+        "stepdown_handler_calls": counts.get("stepdown_tick", 0),
+        "election_due_handled": counts.get("election_due", 0),
+        "fence_armed": stats["fence_lane_armed"],
+        "fence_resolved": stats["fence_lane_resolves"],
+        "fences_pending": stats["fences_pending"],
+        "launches": launches, "fold_calls": fold_calls[0],
+        "fold_launches": fold_launches,
+        "tick_total_ms_p50": hist["tick_total_ms"]["p50"],
+        "tick_device_ms_p50": hist["tick_device_ms"]["p50"],
+        "tick_device_ms_p99": hist["tick_device_ms"]["p99"],
+    }
+    log("[12b] " + json.dumps(res))
+    check(res["clamp_probe_groups"] > 0, "no clamp probe on the leader half")
+    check(res["clamp_held"], f"witness clamp breached: {probe_commits[:8]}")
+    check(res["clamp_engaged"], "witness clamp never engaged")
+    check(res["witness_commit_ok"], "witness-conf groups failed to commit")
+    check(res["stepdown_ticks"] > 0 and res["stepdown_handler_calls"] > 0,
+          "the stepdown lane never fired")
+    check(res["fence_resolved"] > 0 and res["fences_pending"] == 0,
+          f"fences: {res['fence_resolved']} resolved, "
+          f"{res['fences_pending']} pending")
+    check(res["election_due_handled"] > 0, "the election lane never fired")
+    check(commits[0] > 0, "no commit advanced through the sharded tick")
+    if not args.cpu:
+        check(launches == eng.ticks * MESH_SHARDS,
+              f"{eng.ticks} engine ticks made {launches} fused-tick "
+              f"launches ({MESH_SHARDS} each expected)")
+        check(fold_launches == fold_calls[0] * MESH_SHARDS,
+              f"{fold_calls[0]} folds made {fold_launches} fold launches")
+    return res
+
+
+async def phase_mesh_plane(args, torch) -> dict:
+    """12(d): tests/test_replica_plane.py's deployment (4 replicas x 8
+    groups, 3 waves of 5 writes) with its plane over a 2 x 4 grid, then
+    the replica leading the fewest groups stopped and one more write a
+    group; every replica's log equals the acknowledged writes and every
+    plane tick is one replica-quorum launch a groups-shard."""
+    from tpuraft_torch.core.node import State
+    from tpuraft_torch.entity import Task
+    from tpuraft_torch.parallel import collective
+    from tpuraft_torch.parallel.replica_cluster import ReplicaPlaneCluster
+
+    devs = mesh_of(args, torch, MESH_GRID[0] * MESH_GRID[1])
+    grid = [devs[i * MESH_GRID[1]:(i + 1) * MESH_GRID[1]]
+            for i in range(MESH_GRID[0])]
+    loop = asyncio.get_running_loop()
+    collective.LAUNCHES = 0  # the path's count starts here
+    t0 = time.perf_counter()
+    c = ReplicaPlaneCluster(MESH_PLANE_REPLICAS, MESH_PLANE_GROUPS,
+                            device=grid)
+    await c.start_all()
+    acked = {g: [] for g in c.groups}
+
+    async def leaders(timeout_s):
+        deadline = loop.time() + timeout_s
+        while True:
+            found = {}
+            for (g, _), node in c.nodes.items():
+                if node.state == State.LEADER:
+                    found.setdefault(g, []).append(node)
+            if all(len(found.get(g, ())) == 1 for g in c.groups):
+                return {g: found[g][0] for g in c.groups}
+            check(loop.time() < deadline, "12(d): a group has no leader")
+            await asyncio.sleep(0.02)
+
+    async def write_all(leader_of, k, tag):
+        futs = []
+        for g in c.groups:
+            for i in range(k):
+                data = f"{g}-{tag}-{i}".encode()
+                fut = loop.create_future()
+                await leader_of[g].apply(Task(data=data, done=fut.set_result))
+                futs.append((g, data, fut))
+        sts = await asyncio.wait_for(
+            asyncio.gather(*[f for _, _, f in futs]), 60)
+        check(all(st.is_ok() for st in sts), "12(d): a write failed")
+        for g, data, _ in futs:
+            acked[g].append(data)
+
+    async def read_back(timeout_s=30):
+        deadline = loop.time() + timeout_s
+        while any(c.fsms[k].logs != acked[k[0]] for k in c.nodes):
+            for k in c.nodes:
+                logs = c.fsms[k].logs
+                check(logs == acked[k[0]][:len(logs)],
+                      f"12(d): replica {k} log differs from the acked writes")
+            check(loop.time() < deadline, "12(d): replicas behind")
+            await asyncio.sleep(0.02)
+
+    try:
+        leader_of = await leaders(60)
+        for wave in range(MESH_PLANE_WAVES):
+            await write_all(leader_of, MESH_PLANE_WRITES, f"w{wave}")
+        await read_back()
+        led = {ep.endpoint: 0 for ep in c.endpoints}
+        for node in leader_of.values():
+            led[node.server_id.endpoint] += 1
+        victim = min(c.endpoints, key=lambda ep: led[ep.endpoint])
+        await c.stop_replica(victim)
+        leader_of = await leaders(60)
+        await write_all(leader_of, 1, "post")
+        await read_back()
+    finally:
+        await c.stop_all()
+    launches = collective.LAUNCHES  # read right after the path
+    res = {"replicas": MESH_PLANE_REPLICAS, "groups": MESH_PLANE_GROUPS,
+           "grid": list(MESH_GRID), **mesh_record(devs),
+           "launches": launches, "plane_ticks": c.plane.ticks,
+           "commit_advances": c.plane.commit_advances,
+           "acked_writes": sum(len(v) for v in acked.values()),
+           "victim_led": led[victim.endpoint],
+           "wall_s": time.perf_counter() - t0}
+    log("[12d] " + json.dumps(res))
+    check(res["acked_writes"] == MESH_PLANE_GROUPS * (
+        MESH_PLANE_WAVES * MESH_PLANE_WRITES + 1), "12(d): write count")
+    if not args.cpu:
+        check(launches > 0 and launches == c.plane.ticks * MESH_GRID[1],
+              f"{c.plane.ticks} plane ticks made {launches} replica-quorum "
+              f"launches ({MESH_GRID[1]} each expected)")
+    return res
+
+
+def phase_mesh(args, torch, quorum_cuda, tick, dev) -> dict:
+    """Phase 12, after 11(b) and beside no other phase."""
+    t0 = time.perf_counter()
+    res = {"kernels": phase_mesh_kernels(args, torch, dev)}
+    res["engine"] = asyncio.run(phase_mesh_engine(args, torch))
+    res["e2e"] = asyncio.run(phase_e2e(args, torch, quorum_cuda, tick, dev,
+                                       shards=MESH_E2E_SHARDS, tag="12c",
+                                       groups=MESH_E2E_GROUPS))
+    res["plane"] = asyncio.run(phase_mesh_plane(args, torch))
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"[12] mesh phase done in {res['wall_s']:.3f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -2683,6 +3278,7 @@ def main() -> int:
         phase_kernel(args, torch, quorum_cuda, dev)
         phase_tick(args, torch, dev)
         phase_replica_kernel(args, torch, dev)
+        phase_mesh_kernels(args, torch, dev)
         log("[quick] build and compare done")
         return 0
     faults = start_fault_plane(args)
@@ -2696,6 +3292,7 @@ def main() -> int:
         soak_res = asyncio.run(phase_soak(args, quorum_cuda, tick))
         life = phase_lifecycle(args)
         replica_res = phase_replica_plane(args)
+        mesh_res = phase_mesh(args, torch, quorum_cuda, tick, dev)
         fleet = asyncio.run(phase_fleet(args))
         phase_fault_plane(faults)
     finally:
@@ -2703,6 +3300,9 @@ def main() -> int:
     paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
              "phase6_kv_lease_reads": kv["lease"],
              "phase7_soak": soak_res, "phase8_lifecycle": life}
+    # the mesh paths: one fused-tick launch a shard a tick
+    mesh_paths = {"phase12b_mesh_engine": mesh_res["engine"],
+                  "phase12c_mesh_raft_groups": mesh_res["e2e"]}
     libs = native_paths()
 
     def entry(name, source, replaces, count, rows, **extra):
@@ -2732,6 +3332,14 @@ def main() -> int:
               "the XLA program around the Pallas call)",
               engine_ticks_by_path={k: v["engine_ticks"]
                                     for k, v in paths.items()},
+              mesh_launches_by_path={k: v["launches"]
+                                     for k, v in mesh_paths.items()},
+              mesh_engine_ticks_by_path={
+                  "phase12b_mesh_engine": mesh_res["engine"]["ticks"],
+                  "phase12c_mesh_raft_groups":
+                      mesh_res["e2e"]["engine_ticks"]},
+              mesh_shards={"phase12b_mesh_engine": MESH_SHARDS,
+                           "phase12c_mesh_raft_groups": MESH_E2E_SHARDS},
               server_engine_ticks={"phase9_supervised_fleet": {
                   ep: m["engine_ticks"]
                   for ep, m in fleet["servers"].items()}},
@@ -2761,11 +3369,48 @@ def main() -> int:
                          "(replica_vote_count, replica_commit_point) and the "
                          "device call of tpuraft/parallel/replica_plane.py:281",
         "plane_ticks": replica_res["plane_ticks"],
+        "grid_launches": mesh_res["plane"]["launches"],
+        "grid_plane_ticks": mesh_res["plane"]["plane_ticks"],
         "main_path": "launches counts phase 11(b), 3 x 1,024 groups of the "
                      "replica plane in its own process: one launch a plane "
-                     "tick",
+                     "tick; grid_launches counts phase 12(d), the plane over "
+                     "a 2 x 4 grid: one launch a groups-shard a plane tick",
         "by_shape": replica_rows})
+    fold_rows = mesh_res["kernels"]["fold_rows"]
+    fold_main = fold_rows[0]  # a shard of the mesh engines' G = 65,536
+    kernels.append({
+        "name": "deadline_fold", "route": "cuda",
+        "source": "tpuraft_torch/ops/csrc/deadline_fold.cu",
+        "replaces": "tpuraft/parallel/mesh.py:91",
+        "launches": mesh_res["e2e"]["fold_launches"],
+        "launches_by_path": {
+            "phase12b_mesh_engine": mesh_res["engine"]["fold_launches"],
+            "phase12c_mesh_raft_groups": mesh_res["e2e"]["fold_launches"]},
+        "fold_calls_by_path": {
+            "phase12b_mesh_engine": mesh_res["engine"]["fold_calls"],
+            "phase12c_mesh_raft_groups": mesh_res["e2e"]["fold_calls"]},
+        "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
+        "ms": fold_main["ms"], "plain_ms": fold_main["plain_ms"],
+        "bound_ms": fold_main["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": [fold_main["G"]], "build_s": build_s,
+        "also_replaces": "tpuraft/core/engine.py:1569-1577 (the engine's "
+                         "mesh-mode fold)",
+        "mesh": mesh_res["kernels"]["mesh"],
+        "main_path": "launches counts phase 12(c), 3 x 256 raft groups on "
+                     "engines over 4 shards: one launch a shard a deadline "
+                     "fold of the engines' loops; phase 12(b) folds once a "
+                     "drive round over 8 shards",
+        "by_shape": fold_rows})
     for k in kernels:
+        if k["name"] == "deadline_fold":
+            log(f"[k] deadline_fold: launches {k['launches_by_path']} for "
+                f"folds {k['fold_calls_by_path']}, match "
+                f"{'exact' if k['max_abs_err'] == 0 else k['max_abs_err']}, "
+                + "; ".join(
+                    f"G={r['G']}: kernel {(r['ms'] or 0) * 1e3:.3f} us, "
+                    f"plain {(r['plain_ms'] or 0) * 1e3:.3f} us, bound "
+                    f"{r['bound_ms'] * 1e3:.3f} us" for r in k["by_shape"]))
+            continue
         if k["name"] == "replica_quorum":
             log(f"[k] replica_quorum: launches {k['launches']} for "
                 f"{k['plane_ticks']} plane ticks, match "

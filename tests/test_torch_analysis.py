@@ -208,9 +208,9 @@ def test_every_port_waiver_has_a_reason():
     waivers = [(m.rel, w) for m in mods for w in m.waivers]
     assert all(w.reason for _, w in waivers)
     # the tick path's designed copies: the engine's, the plane's, the
-    # tick's clock and the staging buffer's view
+    # deadline fold's results and the tick's clock
     sync = sorted(rel for rel, w in waivers if w.rule == "host-sync")
     assert sync == ["tpuraft_torch/core/engine.py",
-                    "tpuraft_torch/core/engine.py",
                     "tpuraft_torch/ops/tick.py",
+                    "tpuraft_torch/parallel/mesh.py",
                     "tpuraft_torch/parallel/replica_plane.py"]

@@ -221,13 +221,6 @@ async def test_profile_dir_writes_a_chrome_trace(tmp_path):
     assert "tpuraft.raft_tick" in traces[0].read_text()
 
 
-async def test_mesh_devices_not_ported():
-    eng = tengine.MultiRaftEngine(toptions.TickOptions(
-        max_groups=4, max_peers=4, device="cpu", mesh_devices=2))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        await eng.start()
-
-
 class _FSM(StateMachine):
     def __init__(self):
         self.logs: list[bytes] = []

@@ -72,8 +72,9 @@ NATIVE = sorted(subprocess.run(
 WRITTEN = [
     "__init__.py", "core/__init__.py", "ops/__init__.py",
     "ops/ballot.py", "ops/quorum_cuda.py", "ops/tick.py",
+    "ops/deadline_fold.py",
     "examples/__init__.py",
-    "parallel/__init__.py", "parallel/collective.py",
+    "parallel/__init__.py", "parallel/collective.py", "parallel/mesh.py",
 ]
 
 
@@ -91,9 +92,10 @@ def _rename(src: str) -> str:
     return src.replace('"-m", "examples.', '"-m", "tpuraft_torch.examples.')
 
 
-# core/engine.py: the device half, which the port rewrites for torch.
-_ENGINE_DEVICE_METHODS = ("_resolve_backend", "start", "shutdown",
-                          "_device_tick")
+# core/engine.py: the device half, which the port rewrites for torch;
+# _resolve_mesh is the port's own (it goes in after _resolve_backend).
+_ENGINE_DEVICE_METHODS = ("_resolve_backend", "_resolve_mesh", "start",
+                          "shutdown", "_device_tick")
 
 
 def _engine_spans(tree: ast.Module) -> list[tuple[int, int]]:
@@ -360,6 +362,11 @@ def test_no_a6_refusal_remains():
 def test_no_a9_refusal_remains():
     for path in PORT.rglob("*.py"):
         assert "ROADMAP A9" not in path.read_text(), path
+
+
+def test_no_a7_refusal_remains():
+    for path in PORT.rglob("*.py"):
+        assert "ROADMAP A7" not in path.read_text(), path
 
 
 def _imports(path: Path):

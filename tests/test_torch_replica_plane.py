@@ -131,14 +131,6 @@ def test_replica_quorum_refuses_bad_planes(bad, err):
         bad()
 
 
-async def test_several_devices_are_refused_naming_a7():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        replicated_tick(3, device=["cuda:0", "cuda:1"])
-    plane = ReplicatedClusterPlane(3, 4, device=("cuda:0", "cuda:1"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        await plane.start()
-
-
 # ---- the plane, step by step ------------------------------------------------
 
 
@@ -432,6 +424,18 @@ def test_example_runs_on_the_cpu_with_chaos():
     assert line["device"] == "cpu" and line["chaos"] is True
     assert line["acked"] == 6 * 3 * 5 + 6
     assert line["plane_ticks"] > 0 and line["commit_advances"] >= 6
+
+
+def test_example_runs_on_a_cpu_grid():
+    """``--mesh 2,4``: the plane over a 2 x 4 (replica, groups) grid of
+    CPU shards, a replica crashed mid-run."""
+    proc = _example("--device", "cpu", "--mesh", "2,4", "--groups", "8",
+                    "--chaos", "--base-port", str(_free_base_port(4)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["mesh"] == "2,4" and line["device"] == "cpu"
+    assert line["acked"] == 8 * 3 * 5 + 8
+    assert line["plane_ticks"] > 0 and line["commit_advances"] >= 8
 
 
 async def test_default_device_is_the_card():

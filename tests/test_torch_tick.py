@@ -253,13 +253,13 @@ def test_packed_outputs_unpacked_by_the_engine_equal_jax(params_kind):
     st = _TickStaging(g, p, torch.device("cpu"))
     st.out_dev.fill_(0xAB)  # stale bytes: every byte must be rewritten
     views = ttick.raft_tick_outputs(state, 1234, tparams, out=st.out_dev)
-    got = st.download()
+    st.fetch()  # on the CPU the tick wrote the host buffer itself
+    got = st.landed()
     _, jout = jtick.raft_tick(_jax_state(fields), jnp.int32(1234),
                               jtick.TickParams.make(*prm))
     for f in dataclasses.fields(ttick.TickOutputs):
         want = np.asarray(getattr(jout, f.name))
-        np.testing.assert_array_equal(getattr(got, f.name), want,
-                                      err_msg=f.name)
+        np.testing.assert_array_equal(got[f.name], want, err_msg=f.name)
         np.testing.assert_array_equal(getattr(views, f.name).numpy(), want,
                                       err_msg=f.name)
     assert st.out_dev.numel() == ttick.packed_nbytes(g) == 17 * g

@@ -1,7 +1,8 @@
 """Checker 4: blocking-call lint.
 
-The tick plane (``tpuraft_torch/ops/`` and the replica quorum of
-``tpuraft_torch/parallel/collective.py``) sits under the device-step budget,
+The tick plane (``tpuraft_torch/ops/``, the replica quorum of
+``tpuraft_torch/parallel/collective.py`` and the sharded tick of
+``tpuraft_torch/parallel/mesh.py``) sits under the device-step budget,
 FSM apply paths run inline on the commit pipeline, coroutines share one
 event loop with every raft group of the process, and anything holding a
 lock convoys every waiter behind it.  A blocking call in any of those
@@ -18,8 +19,9 @@ them this lint forbids:
     wedge becomes a visible error.
 
 Contexts checked (everything else is free to block):
-  1. every function in ``tpuraft_torch/ops/`` and
-     ``tpuraft_torch/parallel/collective.py``        (tick plane)
+  1. every function in ``tpuraft_torch/ops/``,
+     ``tpuraft_torch/parallel/collective.py`` and
+     ``tpuraft_torch/parallel/mesh.py``               (tick plane)
   2. methods of ``*StateMachine`` classes (by name or base) and
      functions named ``on_apply*`` / ``apply_*``       (FSM apply path)
   3. any ``async def`` body — sleep/socket only: ``.result()`` on a
@@ -49,7 +51,8 @@ def check(mods: list[Module]) -> list[Finding]:
     for mod in mods:
         tick_plane = (os.sep + "ops" + os.sep) in mod.rel \
             or mod.rel.startswith("ops" + os.sep) \
-            or mod.rel.endswith(os.path.join("parallel", "collective.py"))
+            or mod.rel.endswith((os.path.join("parallel", "collective.py"),
+                                 os.path.join("parallel", "mesh.py")))
         out.extend(_scan_module(mod, tick_plane))
     return out
 
@@ -124,7 +127,8 @@ def _scan_module(mod: Module, tick_plane: bool) -> list[Finding]:
             visit(stmt, None, hard_why, loop_why)
 
     why_module = ("in tick-plane code (tpuraft_torch/ops, "
-                  "parallel/collective.py)") if tick_plane else None
+                  "parallel/collective.py, parallel/mesh.py)"
+                  ) if tick_plane else None
     for node in mod.tree.body:
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             scan_fn(node, why_module)

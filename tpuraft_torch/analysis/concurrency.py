@@ -88,7 +88,8 @@ def check(mods: list[Module], index: ProjectIndex) -> list[Finding]:
             continue
         tick_plane = (os.sep + "ops" + os.sep) in mod.rel \
             or mod.rel.startswith("ops" + os.sep) \
-            or mod.rel.endswith(os.path.join("parallel", "collective.py"))
+            or mod.rel.endswith((os.path.join("parallel", "collective.py"),
+                                 os.path.join("parallel", "mesh.py")))
         fsm_classes = {ci.name for ci in midx.classes.values()
                        if _is_fsm_class(ci.node)}
         for info in _all_functions(midx):
@@ -111,7 +112,7 @@ def _check_function(index: ProjectIndex, info: FunctionInfo,
     hard_why = None
     if tick_plane:
         hard_why = ("in tick-plane code (tpuraft_torch/ops, "
-                    "parallel/collective.py)")
+                    "parallel/collective.py, parallel/mesh.py)")
     elif (info.cls_name in fsm_classes
           and "<locals>" not in info.qualname) or _is_fsm_fn(info.name):
         hard_why = "on the FSM apply path"

@@ -38,9 +38,9 @@ contract:
     On the tick path of the torch port — the functions that launch a
     port kernel (they call a ``tpuraft_*`` entry point of the library
     ``quorum_cuda.load()`` returns), the tick-plane wrappers around them
-    (``ops/``, ``parallel/collective.py``), the functions that call a
-    wrapper through an attribute bound to it, and everything the
-    launching functions and those callers call — flag host
+    (``ops/``, ``parallel/collective.py``, ``parallel/mesh.py``), the
+    functions that call a wrapper through an attribute bound to it, and
+    everything the launching functions and those callers call — flag host
     synchronization: ``.item()``, ``.cpu()``, ``.tolist()``,
     ``.numpy()``, ``int()/float()/bool()`` of a tensor, and
     data-dependent Python branching (``if``/``while`` on a tensor's
@@ -308,7 +308,7 @@ def _check_state_parity(mods: list[Module]) -> list[Finding]:
 def _in_tick_plane(rel: str) -> bool:
     rel = rel.replace("\\", "/")
     return "/ops/" in rel or rel.startswith("ops/") \
-        or rel.endswith("parallel/collective.py")
+        or rel.endswith(("parallel/collective.py", "parallel/mesh.py"))
 
 
 def _launches(fn) -> bool:
@@ -333,7 +333,8 @@ class _TickPath:
 
     - roots: the functions that launch a port kernel;
     - the wrappers: tick-plane functions (``ops/``,
-      ``parallel/collective.py``) that reach a root;
+      ``parallel/collective.py``, ``parallel/mesh.py``) that reach a
+      root;
     - the callers: functions elsewhere that call a wrapper through an
       attribute bound to it (``self._tick_fn = raft_tick_outputs``,
       ``self._fn = replicated_tick(...)``), where the tick's copies

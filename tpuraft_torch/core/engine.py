@@ -739,38 +739,27 @@ _BOOL_FIELDS = (("granted", 2), ("voter_mask", 2), ("old_voter_mask", 2),
 
 
 class _TickStaging:
-    """Host<->device staging for one engine's torch tick: one byte
-    buffer holds every GroupState field (pinned on the host when the
-    tick runs on CUDA), mirrored by one device buffer whose typed views
-    are the tick's inputs; the tick writes its packed outputs into one
-    more device buffer, which comes back in one copy."""
+    """Host<->device staging for one shard of an engine's torch tick
+    (the whole engine on one device is one shard): one byte buffer holds
+    every GroupState field of the shard's rows (pinned on the host when
+    the tick runs on CUDA), mirrored by one device buffer whose typed
+    views are the tick's inputs; the tick writes its packed outputs into
+    one more device buffer, which comes back in one copy."""
 
-    def __init__(self, g: int, p: int, device):
+    def __init__(self, g: int, p: int, device, rows: slice = slice(None)):
         import torch
 
         from tpuraft_torch.ops.tick import packed_nbytes
+        from tpuraft_torch.parallel.mesh import pinned_staging
 
-        self.g, self.device = g, device
+        self.g, self.device, self.rows = g, device, rows
         cuda = device.type == "cuda"
-        layout, off = [], 0
-        for dtype, specs, item in ((torch.int32, _I32_FIELDS, 4),
-                                   (torch.bool, _BOOL_FIELDS, 1)):
-            for name, rank in specs:
-                shape = (g, p) if rank == 2 else (g,)
-                n = int(np.prod(shape)) * item
-                layout.append((name, dtype, shape, off, off + n))
-                off += n
-        self.host = torch.empty(off, dtype=torch.uint8, pin_memory=cuda)
-        self.dev = (torch.empty(off, dtype=torch.uint8, device=device)
-                    if cuda else self.host)
         # the tick's inputs: typed views of the device buffer, made once
-        self.dev_views = {name: self.dev[a:b].view(dtype).view(shape)
-                          for name, dtype, shape, a, b in layout}
-        # graftcheck: allow(host-sync) — a view of the host buffer, no copy
-        hnp = self.host.numpy()
-        self.host_views = {
-            name: hnp[a:b].view(np.int32 if dtype == torch.int32 else bool)
-            .reshape(shape) for name, dtype, shape, a, b in layout}
+        self.host, self.dev, self.host_views, self.dev_views = \
+            pinned_staging([(name, dtype, (g, p) if rank == 2 else (g,))
+                            for dtype, specs in ((torch.int32, _I32_FIELDS),
+                                                 (torch.bool, _BOOL_FIELDS))
+                            for name, rank in specs], device)
         self.out_dev = torch.empty(packed_nbytes(g), dtype=torch.uint8,
                                    device=device)
         self.out_host = (torch.empty(packed_nbytes(g), dtype=torch.uint8,
@@ -778,9 +767,10 @@ class _TickStaging:
                          if cuda else self.out_dev)
 
     def fill(self, e: "MultiRaftEngine", rel, commit_rel_now) -> None:
-        """Write this tick's mirrors into the host buffer (int64 time
-        rows wrap to int32 exactly like ``astype(np.int32)``)."""
-        v = self.host_views
+        """Write this tick's mirrors of the shard's rows into the host
+        buffer (int64 time rows wrap to int32 exactly like
+        ``astype(np.int32)``)."""
+        v, r = self.host_views, self.rows
         for name, src in (("role", e.role), ("commit_rel", commit_rel_now),
                           ("pending_rel", e.pending_rel), ("match_rel", rel),
                           ("elect_deadline", e.elect_deadline),
@@ -794,7 +784,7 @@ class _TickStaging:
                           ("old_voter_mask", e.old_voter_mask),
                           ("quiescent", e.quiescent),
                           ("witness_mask", e.witness_mask)):
-            np.copyto(v[name], src, casting="unsafe")
+            np.copyto(v[name], src[r], casting="unsafe")
 
     def upload(self) -> dict:
         """One host->device copy; returns the typed device views."""
@@ -802,20 +792,21 @@ class _TickStaging:
             self.dev.copy_(self.host, non_blocking=True)
         return self.dev_views
 
-    def download(self) -> _NpOutputs:
-        """Copy the packed outputs (``out_dev``, written by the tick) to
-        the host once, and unpack numpy rows (copied out of the reused
-        buffer, so a caller may keep them)."""
-        import torch
-
-        from tpuraft_torch.ops.tick import unpack_outputs_numpy
-
+    def fetch(self) -> None:
+        """Start the one copy of the packed outputs (``out_dev``,
+        written by the tick) to the host; :meth:`landed` reads them once
+        the shard's stream is synchronized."""
         if self.out_host is not self.out_dev:
             self.out_host.copy_(self.out_dev, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
+
+    def landed(self) -> dict:
+        """The packed outputs as numpy rows (copied out of the reused
+        buffer, so a caller may keep them)."""
+        from tpuraft_torch.ops.tick import unpack_outputs_numpy
+
         # graftcheck: allow(host-sync) — the tick's one D2H copy, landed
         host = self.out_host.numpy().copy()
-        return _NpOutputs(**unpack_outputs_numpy(host, self.g))
+        return unpack_outputs_numpy(host, self.g)
 
 
 class MultiRaftEngine:
@@ -918,10 +909,12 @@ class MultiRaftEngine:
         self._dirty_event = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
         self._stopped = False
-        self._tick_fn = None  # torch raft_tick outputs, set by start()
-        self._device = None   # torch device of the tick (start())
-        self._params_dev = None
-        self._staging = None  # _TickStaging for the current G (torch tick)
+        self._tick_fn = None  # the sharded tick's outputs, set by start()
+        self._deadline_fold = None  # mesh mode: one fold a shard + host min
+        self._mesh = None     # torch devices of the tick's shards (start())
+        self._device = None   # the first shard's device
+        self._params_dev = None  # TickParams of each shard
+        self._staging = None  # a _TickStaging a shard, for the current G
         self._profiler = None  # torch.profiler window (profile_dir)
         self.ticks = 0
         self.commit_advances = 0
@@ -1552,40 +1545,66 @@ class MultiRaftEngine:
     def _resolve_backend(self) -> str:
         """The tick backend the caller asked for — never a silent
         substitute: "torch" runs on ``TickOptions.device`` (start()
-        raises when that is "cuda" and no CUDA device exists); "numpy"
-        is the explicit host twin."""
+        raises when that names a card that does not exist); "numpy" is
+        the explicit host twin."""
         b = self.opts.backend
         if b not in ("torch", "numpy"):
             raise ValueError(f"unknown tick backend {b!r} "
                              "(expected 'torch' or 'numpy')")
-        if self.opts.mesh_devices and self.opts.mesh_devices > 1:
-            raise NotImplementedError(
-                "mesh_devices > 1 is not ported to tpuraft_torch yet "
-                "(ROADMAP queue A: mesh sharding)")
         return b
+
+    def _resolve_mesh(self):
+        """The tick's shards: ``TickOptions.device`` alone, or with
+        ``mesh_devices=N > 1`` N shards along the group axis — N
+        distinct cards for "cuda", N logical shards for "cpu", or the N
+        devices of a list (which may name one card several times)."""
+        import torch
+
+        from tpuraft_torch.parallel.mesh import make_mesh
+
+        n = self.opts.mesh_devices or 1
+        devs = self.opts.device
+        if isinstance(devs, (list, tuple)):
+            if len(devs) != n:
+                raise ValueError(
+                    f"TickOptions.device lists {len(devs)} devices but "
+                    f"mesh_devices={self.opts.mesh_devices}")
+        elif n == 1:
+            dev = torch.device(devs)
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"TickOptions(device={devs!r}) but no CUDA device is "
+                    "available; pass device='cpu' or backend='numpy' to "
+                    "run the tick on the host")
+        if self.G % n != 0:
+            raise ValueError(
+                f"max_groups={self.G} not divisible by mesh_devices={n}")
+        # raises if fewer cards exist than the mesh asks for
+        return make_mesh(n, devs)
 
     async def start(self) -> None:
         if self._resolve_backend() == "torch":
-            import torch
+            from tpuraft_torch.parallel.mesh import (sharded_deadline_fold,
+                                                     sharded_tick_outputs)
 
-            from tpuraft_torch.ops.tick import raft_tick_outputs
-
-            dev = torch.device(self.opts.device)
-            if dev.type == "cuda":
-                if not torch.cuda.is_available():
-                    raise RuntimeError(
-                        f"TickOptions(device={self.opts.device!r}) but no "
-                        "CUDA device is available; pass device='cpu' or "
-                        "backend='numpy' to run the tick on the host")
+            mesh = self._resolve_mesh()
+            if any(d.type == "cuda" for d in mesh):
                 from tpuraft_torch.ops import quorum_cuda
 
-                # build + load the kernel library (the fused tick) NOW,
-                # before any node registers: a multi-second nvcc build
-                # mid-protocol would block the event loop and miss every
-                # group's heartbeat window at once
+                # build + load the kernel library (the fused tick and the
+                # deadline fold) NOW, before any node registers: a
+                # multi-second nvcc build mid-protocol would block the
+                # event loop and miss every group's heartbeat window at
+                # once
                 quorum_cuda.load()
-            self._device = dev
-            self._tick_fn = raft_tick_outputs
+            self._mesh, self._device = mesh, mesh[0]
+            # each shard's rows advance on its own device: one launch a
+            # shard, and only the [G] output rows come back to the host
+            self._tick_fn = sharded_tick_outputs(mesh)
+            if len(mesh) > 1:
+                # earliest-deadline scan as one fold a shard and a min
+                # of N values, instead of a host scan over every row
+                self._deadline_fold = sharded_deadline_fold(mesh)
             # warm tick (first launch, staging buffers) before any node
             # registers, for the same reason
             self.tick_once()
@@ -1597,7 +1616,7 @@ class MultiRaftEngine:
                 import torch
 
                 acts = [torch.profiler.ProfilerActivity.CPU]
-                if self._device.type == "cuda":
+                if any(d.type == "cuda" for d in self._mesh):
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
                 try:
                     # one profiler per process: a second engine keeps
@@ -1642,7 +1661,18 @@ class MultiRaftEngine:
         stepdown check) over controlled slots; a huge sentinel when
         none.  Quiescent slots schedule NOTHING — a fully hibernated
         engine sleeps until a dirty mark (wake, lease round, client
-        traffic) arrives."""
+        traffic) arrives.  Mesh mode folds the scan on device (one
+        sharded reduction + collective min) instead of gathering every
+        sharded row back per loop iteration."""
+        if self._deadline_fold is not None:
+            from tpuraft_torch.parallel.mesh import DEADLINE_NONE_I32
+
+            nxt = int(self._deadline_fold(
+                self.role, self.quiescent, self.has_ctrl,
+                self.elect_deadline.astype(np.int32),
+                self.hb_deadline.astype(np.int32),
+                self.stepdown_deadline.astype(np.int32)))
+            return (1 << 60) if nxt >= int(DEADLINE_NONE_I32) else nxt
         hc = self.has_ctrl & ~self.quiescent
         ec = hc & ((self.role == ROLE_FOLLOWER) | (self.role == ROLE_CANDIDATE))
         ld = hc & (self.role == ROLE_LEADER)
@@ -1763,29 +1793,43 @@ class MultiRaftEngine:
         return advanced
 
     def _device_tick(self, rel, commit_rel_now, now):
-        """One torch tick: the 15 state mirrors go up in ONE
-        non-blocking copy from a pinned staging buffer, the tick (one
-        fused-tick launch on CUDA) writes its 11 outputs packed into a
-        device buffer, and they come back in ONE copy — per-field
+        """One torch tick, per shard: the 15 state mirrors of the
+        shard's rows go up in ONE non-blocking copy from a pinned
+        staging buffer, the tick (one fused-tick launch on CUDA) writes
+        its 11 outputs packed into a device buffer, and they come back
+        in ONE copy; the host waits once for every shard — per-field
         synchronous copies would make copy latency the tick's cost."""
         import torch
 
         from tpuraft_torch.ops.tick import GroupState, TickParams
+        from tpuraft_torch.parallel.mesh import group_slices, shard_params
 
-        dev = self._device
+        mesh = self._mesh
         if self._params_dev is None:
-            self._params_dev = TickParams.make(self.eto_ms, self.hb_ms,
-                                               self.lease_ms, self.snap_ms,
-                                               device=dev)
-        if self._staging is None or self._staging.g != self.G:
-            self._staging = _TickStaging(self.G, self.P, dev)
-        st = self._staging
-        st.fill(self, rel, commit_rel_now)
+            self._params_dev = shard_params(TickParams.make(
+                self.eto_ms, self.hb_ms, self.lease_ms, self.snap_ms,
+                device="cpu"), mesh, self.G)
+        if self._staging is None or sum(
+                st.g for st in self._staging) != self.G:
+            self._staging = [
+                _TickStaging(self.G // len(mesh), self.P, dev, rows)
+                for dev, rows in zip(mesh, group_slices(self.G, len(mesh)))]
+        stagings = self._staging
+        for st in stagings:
+            st.fill(self, rel, commit_rel_now)
         with torch.profiler.record_function("tpuraft.raft_tick"):
-            d = st.upload()
-            state = GroupState(**d)
-            self._tick_fn(state, now, self._params_dev, out=st.out_dev)
-            return st.download()
+            states = [GroupState(**st.upload()) for st in stagings]
+            self._tick_fn(states, now, self._params_dev,
+                          [st.out_dev for st in stagings])
+            for st in stagings:
+                st.fetch()
+            for dev in {d for d in mesh if d.type == "cuda"}:
+                torch.cuda.current_stream(dev).synchronize()
+            parts = [st.landed() for st in stagings]
+        if len(parts) == 1:
+            return _NpOutputs(**parts[0])
+        return _NpOutputs(**{k: np.concatenate([p[k] for p in parts])
+                             for k in parts[0]})
 
     def _np_tick(self, rel, commit_rel_now, now) -> _NpOutputs:
         """Bit-exact numpy twin of tpuraft_torch.ops.tick.raft_tick (the

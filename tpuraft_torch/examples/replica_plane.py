@@ -11,6 +11,8 @@ on the surviving quorum, and verifies convergence.
     python -m tpuraft_torch.examples.replica_plane              # the card
     python -m tpuraft_torch.examples.replica_plane --device cpu
     python -m tpuraft_torch.examples.replica_plane --numpy      # numpy plane
+    python -m tpuraft_torch.examples.replica_plane --mesh 2,4   # 2 x 4 cards
+    python -m tpuraft_torch.examples.replica_plane --device cpu --mesh 2,4
     python -m tpuraft_torch.examples.replica_plane --replicas 4 --groups 8 --chaos
 
 Reference role: the NCCL/MPI math plane of ``core:ReplicatorGroup`` ack
@@ -25,10 +27,24 @@ import json
 import time
 
 
+def build_grid(spec: str, device: str):
+    """The (replica, groups) grid of ``--mesh Rm,Gm``: Rm x Gm distinct
+    cards (an error when fewer exist), or logical shards of the CPU."""
+    from tpuraft_torch.parallel.mesh import make_mesh
+
+    try:
+        rm, gm = (int(x) for x in spec.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh takes Rm,Gm, got {spec!r}") from None
+    devs = make_mesh(rm * gm, device)
+    return [list(devs[i * gm:(i + 1) * gm]) for i in range(rm)]
+
+
 async def main(args) -> None:
     from tpuraft_torch.parallel.replica_cluster import ReplicaPlaneCluster
 
-    c = ReplicaPlaneCluster(args.replicas, args.groups, device=args.device,
+    device = build_grid(args.mesh, args.device) if args.mesh else args.device
+    c = ReplicaPlaneCluster(args.replicas, args.groups, device=device,
                             backend="numpy" if args.numpy else "torch",
                             election_timeout_ms=args.election_timeout_ms,
                             transport=args.transport,
@@ -77,7 +93,7 @@ async def main(args) -> None:
             "replicas": args.replicas, "groups": args.groups,
             "transport": args.transport,
             "device": "numpy" if args.numpy else args.device,
-            "acked": acked,
+            "mesh": args.mesh, "acked": acked,
             "plane_ticks": c.plane.ticks,
             "commit_advances": c.plane.commit_advances,
             "chaos": args.chaos, "elapsed_s": round(dt, 2)}))
@@ -96,6 +112,9 @@ if __name__ == "__main__":
                     help="the device of the plane's replica-quorum tick")
     ap.add_argument("--numpy", action="store_true",
                     help="run the plane's numpy twin instead")
+    ap.add_argument("--mesh", metavar="RM,GM",
+                    help="spread the plane over an RM x GM (replica, "
+                         "groups) grid of devices")
     ap.add_argument("--transport", default="inproc",
                     choices=["inproc", "tcp", "native"],
                     help="protocol-plane transport: in-proc loopback, "

@@ -15,8 +15,9 @@ show that its main path went through the kernel.
 
 :func:`load` builds one shared library from every source under ``csrc/``
 (the fused quorum, the fused tick of :mod:`tpuraft_torch.ops.tick`, the
-warp-segmented core they share and the replica quorum of
-:mod:`tpuraft_torch.parallel.collective`) with ``nvcc`` for ``sm_90a`` at
+warp-segmented core they share, the replica quorum of
+:mod:`tpuraft_torch.parallel.collective` and the deadline fold of
+:mod:`tpuraft_torch.ops.deadline_fold`) with ``nvcc`` for ``sm_90a`` at
 first use, one compiler process per source, all started together, and
 loads it with ``ctypes``.
 """
@@ -46,7 +47,8 @@ LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # each a compiler process
-_SOURCES = ("fused_quorum.cu", "fused_tick.cu", "replica_quorum.cu")
+_SOURCES = ("fused_quorum.cu", "fused_tick.cu", "replica_quorum.cu",
+            "deadline_fold.cu")
 _HEADERS = ("quorum_core.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -149,6 +151,10 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn = lib.tpuraft_replica_quorum
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = lib.tpuraft_deadline_fold
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
             if lib.tpuraft_fused_quorum_max_peers() != MAX_PEERS:

@@ -170,11 +170,18 @@ class TickOptions:
     backend: str = "torch"        # "torch" | "numpy"
     # Torch device of the tick.  "cuda" needs a CUDA card: start() raises
     # without one (no silent CPU fallback); "cpu" runs the kernel's plain
-    # torch version and is what the CPU tests ask for.
-    device: str = "cuda"
-    # Shard the engine's [G, P] planes over several cards along the
-    # group axis (0/1 = single device).  Not ported yet: start() raises
-    # NotImplementedError for mesh_devices > 1.
+    # torch version and is what the CPU tests ask for.  With
+    # mesh_devices=N it may be a list of N devices, one per shard; a
+    # list may name one card several times (N shards on one card).
+    device: str | list = "cuda"
+    # Shard the engine's [G, P] planes over N devices along the group
+    # axis (0/1 = single device); max_groups must divide evenly.  Each
+    # shard's rows go up, tick (one fused-tick launch on a card) and
+    # come back on its own device, and the earliest-deadline scan is one
+    # fold launch a shard.  With device="cuda" it means the first N
+    # distinct cards, and start() raises when fewer exist: it never
+    # shares a card unless the device list names it; with "cpu", N
+    # logical shards of the host.
     mesh_devices: int = 0
     # Write a torch.profiler trace of the engine's device ticks into this
     # directory (a Chrome trace, viewable in Perfetto, exported at

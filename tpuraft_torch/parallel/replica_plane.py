@@ -290,11 +290,14 @@ class ReplicatedClusterPlane:
             if self._fn is None:
                 raise RuntimeError("start() the plane before its first "
                                    "torch tick")
-            # one H2D copy of rel and one launch; the grant plane is a
-            # zero plane kept on the device
+            # one H2D copy of rel and one launch (a groups-shard of a
+            # grid each); the grant plane is a zero plane kept on the
+            # device
             commit_rel, _votes = self._fn(torch.from_numpy(rel))
-            # graftcheck: allow(host-sync) — the tick's one D2H copy
-            commit_rel = commit_rel.cpu().numpy()
+            if isinstance(commit_rel, torch.Tensor):  # one device
+                commit_rel = (commit_rel,)
+            # graftcheck: allow(host-sync) — the tick's D2H copy a groups-shard
+            commit_rel = np.concatenate([c.cpu().numpy() for c in commit_rel])
         else:  # numpy oracle (no mesh): q-th largest over replicas
             q = self.R // 2 + 1
             commit_rel = np.sort(rel, axis=0)[::-1][q - 1]

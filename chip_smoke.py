@@ -19,8 +19,8 @@ Phases (any failure exits non-zero; none is caught):
   3. the fused tick (raft_tick on CUDA, one launch) against the plain
      tick on the CPU: 50 rounds of random full state at G=16,384 P=8
      and G=2,048 P=4, and rounds of edge rows at G=16,421 P=16, G=1,028
-     P=5, G=2,048 P=4 and G=64, 256 and 512 P=4; all 11 outputs and 15
-     state fields bit-exact;
+     P=5, G=2,048 P=4, the ragged G=2,053 P=5 and G=64, 256 and 512 P=4;
+     all 11 outputs and 15 state fields bit-exact;
      then the fused tick timed beside the plain tick on the card;
   4. the engine plane at 16,384 groups: MultiRaftEngine on CUDA and its
      numpy backend fed one ballot-box trace (3 voters; 5 voters with
@@ -115,7 +115,9 @@ Phases (any failure exits non-zero; none is caught):
         fused tick at G=16,384 P=8 and G=65,536 P=4, 8 rounds with state
         carried, bit for bit, one launch a shard; the deadline-fold
         kernel against its plain version and the host scan (8 trials and
-        the sentinel) at G=65,536 over 8 shards, then timed; the replica
+        the sentinel) at G=65,536 over 8 shards, the 9 back to back on
+        one work buffer, then timed, and right again after its timed
+        graphs; the replica
         quorum over a 2 x 4 grid against one device at R=4 G=16,384;
      b. bench_multichip.py's mesh lanes: one engine of 65,536 groups,
         P=4, over 8 shards, 10 s of stub controls: the witness clamp
@@ -237,7 +239,7 @@ def phase_card(args, torch, quorum_cuda) -> tuple[str, float | None]:
     for line in out.splitlines():  # -Xptxas -v for the main-path widths
         if "Compiling entry function" in line:
             entry = next((f"{k} S={w}" for k in ("fused_quorum", "fused_tick")
-                          for w in (8, 16, 32)
+                          for w in (4, 8, 16, 32)
                           if f"{k}_kernelILi{w}EE" in line), "") or next(
                 (f"replica_quorum R<={w}" for w in (4, 64)
                  if f"replica_quorum_kernelILi{w}EE" in line), "")
@@ -454,6 +456,12 @@ def tick_bound_ms(tick, state, params, with_state=False) -> float:
     return n / HBM_BYTES_PER_S * 1e3
 
 
+# a G not a multiple of 16, so the last block is part full, with P=5
+# (three dead lanes a segment), [G] parameter rows, joint and witness
+# rows (edge_tick_fields)
+RAGGED_TICK_G = 2053
+
+
 def tick_cases(args):
     """(name, G, P, fields generator, params, rounds) of phase 3."""
     if args.cpu:
@@ -469,6 +477,7 @@ def tick_cases(args):
             ("edge", 1028, 5, edge_tick_fields, "scalars", rounds),
             ("random", g, p, rand_tick_fields, "rows", rounds),
             ("edge", g, p, edge_tick_fields, "rows", rounds),
+            ("edge", RAGGED_TICK_G, 5, edge_tick_fields, "rows", rounds),
             *(("edge", lg, lp, edge_tick_fields, "rows", rounds)
               for lg, lp in LIFECYCLE_SHAPES)]
 
@@ -2846,11 +2855,25 @@ def phase_mesh_kernels(args, torch, dev) -> dict:
     log(f"[12] deadline fold G={g} over {MESH_SHARDS} shards: "
         f"{MESH_FOLD_TRIALS} trials and the sentinel equal to the host scan; "
         f"every shard's kernel equal to its plain version")
+    # the trials back to back on one work buffer, one stream, no wait in
+    # between: each fold must leave the buffer's scratch at rest
+    gs = g // MESH_SHARDS
+    buf = dfold.fold_work_buffer(dev)
+    got = torch.empty(len(trials) + 1, dtype=torch.int32, device=dev)
+    parts = [[torch.from_numpy(np.ascontiguousarray(x[:gs])).to(dev)
+              for x in rows] for rows in (*trials, none)]
+    for i, part in enumerate(parts):
+        got[i:i + 1].copy_(dfold.deadline_fold(*part, out=buf).view(1))
+    want = [host_fold(*(x[:gs] for x in rows)) for rows in (*trials, none)]
+    check(got.cpu().tolist() == want, f"back-to-back folds on one buffer: "
+          f"{got.cpu().tolist()} != {want}")
+    log(f"[12] deadline fold G={gs}: {len(parts)} folds back to back on one "
+        f"work buffer equal to the host scan (the sentinel last)")
     rows = []
     for gs in ((g // MESH_SHARDS, g) if not args.cpu else (g // 8,)):
         part = [torch.from_numpy(np.ascontiguousarray(x[:gs])).to(dev)
                 for x in trials[0]]
-        buf = torch.empty(3, dtype=torch.int32, device=dev)
+        buf = dfold.fold_work_buffer(dev)
         row = {"G": gs, "max_abs_err": err, "bound_ms": fold_bound_ms(gs),
                "ms": None, "plain_ms": None, "eager_ms": None}
         if not (args.cpu or args.quick):
@@ -2864,6 +2887,11 @@ def phase_mesh_kernels(args, torch, dev) -> dict:
             row["eager_ms"] = time_events(
                 torch, lambda: dfold.deadline_fold(*part, out=buf),
                 TIMED_LAUNCHES)
+            # after the graphs of 100 folds on it, the buffer still folds
+            # right
+            check(int(dfold.deadline_fold(*part, out=buf)) == host_fold(
+                *(x[:gs] for x in trials[0])), f"the fold at G={gs} after "
+                f"its timed graphs differs from the host scan")
         rows.append(row)
         log(f"[12] deadline_fold G={gs}: " + ", ".join(
             f"{k}={v}" for k, v in row.items() if k.endswith("ms")))

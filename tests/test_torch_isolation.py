@@ -379,7 +379,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-     ROOT / "bench_torch_tick.py", ROOT / "bench_torch_kv.py"], key=str),
+     ROOT / "bench_torch_tick.py", ROOT / "bench_torch_kv.py",
+     ROOT / "profile_torch_leg_a.py"], key=str),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_tpuraft_imports_in_source(path):
     for mod in _imports(path):

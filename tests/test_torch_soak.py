@@ -164,6 +164,17 @@ _FAULT_MODES = {
 }
 
 
+def _upweighted(action, name: str, weight: float):
+    """The nemesis action class with one action's draw weight set."""
+
+    def make(what, *a, **kw):
+        if what == name:
+            kw["weight"] = weight
+        return action(what, *a, **kw)
+
+    return make
+
+
 @pytest.mark.parametrize("mode", list(_FAULT_MODES))
 async def test_storage_fault_soak_on_the_cpu(tmp_path, monkeypatch, mode):
     """--power-loss, --gray and --disk-pressure (seed 3, 8 s) through
@@ -175,6 +186,14 @@ async def test_storage_fault_soak_on_the_cpu(tmp_path, monkeypatch, mode):
 
     monkeypatch.setattr(soak, "StoreEngineOptions", functools.partial(
         soak.StoreEngineOptions, disk_budget_bytes=DISK_BUDGET))
+    if mode == "power_loss":
+        # the power-loss action at draw weight 4.5, three times the
+        # soak's 1.5: at 1.5 the 8-10 draws of an 8 s run held none in 3
+        # of 20 runs of the JAX package's soak and 1 of 20 of the port's
+        # (every history linearizable), so the gate below rested on the
+        # draw
+        monkeypatch.setattr(soak, "NemesisAction", _upweighted(
+            soak.NemesisAction, "power-loss", 4.5))
     r = await asyncio.wait_for(soak.run_soak(
         duration_s=8, n_stores=3, n_keys=4, seed=3,
         data_path=str(tmp_path), verbose=False, **{mode: True}), 110)

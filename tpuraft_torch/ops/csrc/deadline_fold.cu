@@ -12,13 +12,16 @@
 // words of every row, coalesced), a warp-shuffle min, a block min through
 // shared memory, then one atomicMin per block.  The atomics run on an
 // order-preserving key, x ^ 0x80000000 as uint32, so the sentinel's key is
-// 0xFFFFFFFF: the byte pattern of one memset on the launch stream.  A
-// ticket counter (the memset starts it at 0xFFFFFFFF) finds the last block,
-// which writes the decoded min.  A min is exact whatever order the atomics
-// take.
+// 0xFFFFFFFF.  A ticket counter finds the last block, which writes the
+// decoded min.  A min is exact whatever order the atomics take.
 //
 // out[0] receives the min; out[1] (the key) and out[2] (the ticket) are
-// scratch that the launch resets itself.
+// scratch that rests at 0xFFFFFFFF between folds: the last block takes the
+// key with an atomic exchange that resets it and resets the ticket, so the
+// next fold on the stream (a kernel boundary later) finds both at rest.
+// One fold is one kernel node, with no memset before it; whoever allocates
+// the buffer sets the rest state once (tpuraft_torch/ops/deadline_fold.py::
+// fold_work_buffer).
 //
 // Bound: bytes, G * 18 read (four int32 rows, two bool rows) and 4 written
 // (0.35 us at G=65,536 on an H100's 3.35 TB/s); at a shard's size the
@@ -37,6 +40,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 1056;  // 132 SMs x 8 resident blocks
 constexpr uint32_t kFlip = 0x80000000u;
+constexpr uint32_t kRest = 0xFFFFFFFFu;  // the key's and the ticket's rest
 
 __device__ __forceinline__ int32_t row_deadline(int32_t role, uint8_t quiescent,
                                                 uint8_t has_ctrl, int32_t elect,
@@ -79,11 +83,12 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t* ticket = reinterpret_cast<uint32_t*>(out + 2);
   atomicMin(key, static_cast<uint32_t>(m) ^ kFlip);
   __threadfence();
-  // the memset starts the ticket at 0xFFFFFFFF: the last of gridDim.x
-  // blocks draws gridDim.x - 2 (mod 2^32)
+  // the ticket rests at 0xFFFFFFFF: the last of gridDim.x blocks draws
+  // gridDim.x - 2 (mod 2^32), after every other block's atomicMin
   if (atomicAdd(ticket, 1u) == static_cast<uint32_t>(gridDim.x) - 2u) {
     __threadfence();
-    out[0] = static_cast<int32_t>(atomicOr(key, 0u) ^ kFlip);
+    out[0] = static_cast<int32_t>(atomicExch(key, kRest) ^ kFlip);
+    atomicExch(ticket, kRest);
   }
 }
 
@@ -98,8 +103,6 @@ extern "C" int tpuraft_deadline_fold(const int32_t* role,
   // the grid-stride index stays below 2^31
   if (G < 0 || G > INT32_MAX - kMaxBlocks * kThreads)
     return cudaErrorInvalidValue;
-  cudaError_t rc = cudaMemsetAsync(out + 1, 0xFF, 2 * sizeof(int32_t), stream);
-  if (rc != cudaSuccess) return rc;
   int blocks = (G + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;  // G == 0: the one block writes the sentinel
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;

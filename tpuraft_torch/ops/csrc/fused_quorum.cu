@@ -42,8 +42,9 @@ __global__ void __launch_bounds__(kThreads) fused_quorum_kernel(
     uint8_t* __restrict__ elected, int32_t* __restrict__ qack, int G,
     int P) {
   const Lane<S> ln(G, P);
-  const Quorum q = quorum_stage<S>(ln, P, match, granted, last_ack,
-                                   voter_mask, old_voter_mask);
+  const Quorum q = quorum_of<S>(
+      ln, P, load_slot<S>(ln, P, match, granted, last_ack, voter_mask,
+                          old_voter_mask));
   if (ln.k == 0 && ln.g < G) {
     qidx[ln.g] = q.quorum_idx;
     qack[ln.g] = q.q_ack;

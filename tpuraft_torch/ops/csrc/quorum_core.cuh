@@ -10,14 +10,18 @@
 // collective with neutral values: they load nothing, set no ballot bit and
 // take part in no count or maximum.  No lane returns before the last
 // collective, so every __shfl_sync / __ballot_sync names the full warp.
+// Any block size that is a multiple of 32 works: a lane's group is
+// (blockIdx.x * blockDim.x + threadIdx.x) / S.
 //
 // The order statistic equals the sort-based oracle (tpuraft_torch/ops/
 // ballot.py) bit for bit: masked-out slots take the value -2^30, all P slots
 // of the row are ranked, and the value at sorted position q - 1 is picked,
 // q = n_voters / 2 + 1.  Rank counting finds it without a sort: the q-th
 // largest of a multiset w is max{ w_j : #{k : w_k >= w_j} >= q }.  Each lane
-// counts for its own value with S shuffles (O(P) work per lane), and a
-// xor-butterfly takes the maximum over the segment's candidates.
+// counts for its own values in one loop of S shuffle pairs, which ranks its
+// masked match and its masked ack together; a warp that holds a joint row
+// makes one more such loop for the old configuration.  A xor-butterfly then
+// takes the maximum over the segment's candidates.
 //
 // Replaces the quorum math of the JAX package's Pallas TPU kernel,
 // tpuraft/ops/quorum_pallas.py::_fused_quorum_pallas (helpers _qth_largest,
@@ -48,7 +52,7 @@ struct Lane {
   bool live;
 
   __device__ __forceinline__ Lane(int G, int P) {
-    const int t = blockIdx.x * kThreads + threadIdx.x;
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
     g = t / S;
     k = t % S;
     seg_base = (threadIdx.x & 31) & ~(S - 1);
@@ -72,23 +76,64 @@ __device__ __forceinline__ int32_t segment_max(int32_t v) {
   return v;
 }
 
-// q-th largest of the segment's P slot values with slots outside `mask`
-// set to kNegInf, q = n / 2 + 1 with n = popcount(mask); kNegInf when
-// n == 0.  Every lane of the warp must call it.
+// One lane's slot of the five [G, P] planes the quorum reads (0 and false
+// on a dead lane).
+struct Slot {
+  int32_t match;
+  int32_t ack;
+  bool voter;
+  bool old_voter;
+  bool granted;
+};
+
 template <int S>
-__device__ __forceinline__ int32_t qth_largest(const Lane<S>& ln, int P,
-                                               int32_t v, uint32_t mask) {
-  const int32_t w = ((mask >> ln.k) & 1u) ? v : kNegInf;
-  int c = 0;
+__device__ __forceinline__ Slot load_slot(
+    const Lane<S>& ln, int P, const int32_t* __restrict__ match,
+    const uint8_t* __restrict__ granted, const int32_t* __restrict__ last_ack,
+    const uint8_t* __restrict__ voter_mask,
+    const uint8_t* __restrict__ old_voter_mask) {
+  Slot s{0, 0, false, false, false};
+  if (ln.live) {
+    const size_t off = static_cast<size_t>(ln.g) * P + ln.k;
+    s.match = __ldg(match + off);
+    s.ack = __ldg(last_ack + off);
+    s.voter = __ldg(voter_mask + off) != 0;
+    s.old_voter = __ldg(old_voter_mask + off) != 0;
+    s.granted = __ldg(granted + off) != 0;
+  }
+  return s;
+}
+
+// The q-th largest of the segment's P match values and of its P ack
+// values under one voter mask (slots outside the mask at kNegInf), q =
+// n / 2 + 1 with n = popcount(mask); kNegInf when n == 0.  One loop of S
+// shuffle pairs counts both ranks.  A dead lane sends INT32_MIN: below
+// every value, it adds to no count but that of a lane whose own value is
+// INT32_MIN, whose rank test holds anyway (every one of the P slots is >=
+// it, and q <= P), so no slot-index test is needed in the loop.  Every
+// lane of the warp must call it.
+template <int S>
+__device__ __forceinline__ void order_stats(const Lane<S>& ln, int P,
+                                            int32_t m, int32_t a,
+                                            uint32_t mask, int32_t& qm,
+                                            int32_t& qa) {
+  const bool in = (mask >> ln.k) & 1u;
+  const int32_t wm = in ? m : kNegInf;
+  const int32_t wa = in ? a : kNegInf;
+  const int32_t sm = ln.live ? wm : INT32_MIN;
+  const int32_t sa = ln.live ? wa : INT32_MIN;
+  int cm = 0, ca = 0;
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    const int32_t x = __shfl_sync(kFullWarp, w, i, S);
-    c += (i < P && x >= w) ? 1 : 0;
+    cm += __shfl_sync(kFullWarp, sm, i, S) >= wm ? 1 : 0;
+    ca += __shfl_sync(kFullWarp, sa, i, S) >= wa ? 1 : 0;
   }
   const int n = __popc(mask);
-  const bool candidate = ln.k < P && c >= n / 2 + 1;
-  const int32_t best = segment_max<S>(candidate ? w : INT32_MIN);
-  return n == 0 ? kNegInf : best;
+  const int q = n / 2 + 1;
+  const int32_t bm = segment_max<S>(ln.k < P && cm >= q ? wm : INT32_MIN);
+  const int32_t ba = segment_max<S>(ln.k < P && ca >= q ? wa : INT32_MIN);
+  qm = n == 0 ? kNegInf : bm;
+  qa = n == 0 ? kNegInf : ba;
 }
 
 __device__ __forceinline__ bool vote_quorum(uint32_t granted, uint32_t mask) {
@@ -104,48 +149,39 @@ struct Quorum {
   int32_t q_ack;       // the same order statistic over last_ack
   bool elected;        // granted voters >= q; joint: in both configs
   uint32_t voters;     // voter_mask | old_voter_mask bits of the segment
-  int32_t match;       // this lane's match_rel (0 on a dead lane)
 };
 
+// The reductions of a lane's loaded slot; every lane of the warp must call
+// it.
 template <int S>
-__device__ __forceinline__ Quorum quorum_stage(
-    const Lane<S>& ln, int P, const int32_t* __restrict__ match,
-    const uint8_t* __restrict__ granted, const int32_t* __restrict__ last_ack,
-    const uint8_t* __restrict__ voter_mask,
-    const uint8_t* __restrict__ old_voter_mask) {
-  const size_t off = static_cast<size_t>(ln.g) * P + ln.k;
-  const int32_t m = ln.live ? __ldg(match + off) : 0;
-  const int32_t a = ln.live ? __ldg(last_ack + off) : 0;
-  const uint32_t vm = ln.ballot(ln.live && __ldg(voter_mask + off) != 0);
-  const uint32_t ovm =
-      ln.ballot(ln.live && __ldg(old_voter_mask + off) != 0);
-  const uint32_t gr = ln.ballot(ln.live && __ldg(granted + off) != 0);
-
+__device__ __forceinline__ Quorum quorum_of(const Lane<S>& ln, int P,
+                                            const Slot& s) {
+  const uint32_t vm = ln.ballot(s.voter);
+  const uint32_t ovm = ln.ballot(s.old_voter);
+  const uint32_t gr = ln.ballot(s.granted);
   Quorum r;
-  r.quorum_idx = qth_largest<S>(ln, P, m, vm);
-  r.q_ack = qth_largest<S>(ln, P, a, vm);
+  order_stats<S>(ln, P, s.match, s.ack, vm, r.quorum_idx, r.q_ack);
   r.elected = vote_quorum(gr, vm);
-  // the old config's statistics only where the warp holds a joint row: a
+  // the old configuration's pass only where the warp holds a joint row: a
   // warp-uniform branch, so the shuffles inside name the whole warp
   if (__any_sync(kFullWarp, ovm != 0u)) {
-    const int32_t oqi = qth_largest<S>(ln, P, m, ovm);
-    const int32_t oqa = qth_largest<S>(ln, P, a, ovm);
+    int32_t oqm, oqa;
+    order_stats<S>(ln, P, s.match, s.ack, ovm, oqm, oqa);
     if (ovm != 0u) {
-      r.quorum_idx = min(r.quorum_idx, oqi);
+      r.quorum_idx = min(r.quorum_idx, oqm);
       r.q_ack = min(r.q_ack, oqa);
       r.elected = r.elected && vote_quorum(gr, ovm);
     }
   }
   r.voters = vm | ovm;
-  r.match = m;
   return r;
 }
 
-// One launch over G groups at segment width S: the grid of kThreads blocks.
+// One launch over G groups at segment width S in blocks of `threads`.
 template <int S>
-inline dim3 grid_for(int G) {
-  const long long threads = static_cast<long long>(G) * S;
-  return dim3(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
+inline dim3 grid_for(int G, int threads = kThreads) {
+  const long long lanes = static_cast<long long>(G) * S;
+  return dim3(static_cast<unsigned>((lanes + threads - 1) / threads));
 }
 
 // launch(std::integral_constant<int, S>{}) with S the segment width of P

@@ -15,10 +15,16 @@ on the device of its tensors:
 ``LAUNCHES`` counts kernel launches (and nothing else).
 :func:`tpuraft_torch.parallel.mesh.sharded_deadline_fold` calls it once
 per shard.
+
+The kernel's int32 [3] work buffer (``out``) comes from
+:func:`fold_work_buffer` and nowhere else: the kernel makes no memset,
+it leaves its two scratch words at rest for the next fold, and the
+buffer starts at rest.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -30,6 +36,10 @@ import torch
 DEADLINE_NONE_I32 = np.int32(2**31 - 1)
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
+
+# every live work buffer fold_work_buffer made, by id
+_WORK: "weakref.WeakValueDictionary[int, torch.Tensor]" = \
+    weakref.WeakValueDictionary()
 
 ROW_NAMES = ("role", "quiescent", "has_ctrl", "elect_deadline",
              "hb_deadline", "stepdown_deadline")
@@ -51,6 +61,17 @@ def deadline_fold_reference(role, quiescent, has_ctrl, elect_deadline,
     return nxt.amin() if nxt.numel() else none
 
 
+def fold_work_buffer(device) -> torch.Tensor:
+    """A fold's int32 [3] work buffer on ``device``, every word
+    0xFFFFFFFF: the rest state of ``out[1]`` (the min's key) and
+    ``out[2]`` (the ticket of the last block), which every fold leaves
+    as it found it; ``out[0]`` receives each fold's result.  Folds that
+    share it must run one after another on one stream."""
+    buf = torch.full((3,), -1, dtype=torch.int32, device=device)
+    _WORK[id(buf)] = buf
+    return buf
+
+
 def _check(rows, out) -> None:
     g = rows[0].shape[0] if rows[0].dim() == 1 else -1
     dev = rows[0].device
@@ -68,10 +89,14 @@ def _check(rows, out) -> None:
                              f"on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"deadline_fold: {name} is not contiguous")
-    if out is not None and (out.dtype != torch.int32
-                            or tuple(out.shape) != (3,)
-                            or out.device != dev):
-        raise ValueError(f"deadline_fold: out must be an int32 [3] tensor "
+    if out is None:
+        return
+    if _WORK.get(id(out)) is not out:
+        raise ValueError("deadline_fold: out must be a buffer made by "
+                         "fold_work_buffer (the kernel needs its scratch "
+                         "at rest)")
+    if out.device != dev:
+        raise ValueError(f"deadline_fold: out on {out.device}, the rows "
                          f"on {dev}")
 
 
@@ -80,9 +105,10 @@ def deadline_fold(role, quiescent, has_ctrl, elect_deadline, hb_deadline,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The earliest deadline of the rows as an int32 0-d tensor on their
     device: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors.  Never falls back from one to the other.  ``out``, an int32
-    [3] work buffer on the device, receives the result in ``out[0]`` (the
-    kernel's scratch in the rest); the result is a view of it."""
+    tensors.  Never falls back from one to the other.  ``out``, a work
+    buffer of :func:`fold_work_buffer` on the rows' device, receives the
+    result in ``out[0]`` (the kernel's scratch in the rest); the result
+    is a view of it."""
     rows = (role, quiescent, has_ctrl, elect_deadline, hb_deadline,
             stepdown_deadline)
     _check(rows, out)
@@ -99,7 +125,7 @@ def deadline_fold(role, quiescent, has_ctrl, elect_deadline, hb_deadline,
 
     lib = quorum_cuda.load()
     if out is None:
-        out = torch.empty(3, dtype=torch.int32, device=dev)
+        out = fold_work_buffer(dev)
     with torch.cuda.device(dev):
         rc = lib.tpuraft_deadline_fold(
             *(t.data_ptr() for t in rows), out.data_ptr(), role.shape[0],

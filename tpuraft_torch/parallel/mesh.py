@@ -36,6 +36,7 @@ import torch
 from tpuraft_torch.ops.deadline_fold import (
     DEADLINE_NONE_I32,
     deadline_fold,
+    fold_work_buffer,
 )
 from tpuraft_torch.ops.tick import (
     GroupState,
@@ -231,7 +232,7 @@ def pinned_staging(fields, device: torch.device):
 class _FoldStaging:
     """One shard's fold buffers: its six rows staged by
     :func:`pinned_staging` (the four int32 rows first), and the kernel's
-    int32 [3] work buffer."""
+    work buffer (:func:`fold_work_buffer`)."""
 
     def __init__(self, g: int, device: torch.device, rows: slice):
         self.rows = rows
@@ -240,7 +241,7 @@ class _FoldStaging:
                 "role", "elect_deadline", "hb_deadline", "stepdown_deadline")]
                 + [(name, torch.bool, (g,))
                    for name in ("quiescent", "has_ctrl")], device)
-        self.out = torch.empty(3, dtype=torch.int32, device=device)
+        self.out = fold_work_buffer(device)
 
     def fill(self, rows: dict) -> None:
         """This shard's rows into the host buffer (wider integer rows

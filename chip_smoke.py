@@ -1723,12 +1723,14 @@ async def lifecycle_run(args, quorum_cuda, tick) -> dict:
     import tempfile
 
     from tpuraft_torch.examples import soak
+    from tpuraft_torch.rheakv.keyspace import coverage_errors
     from tpuraft_torch.rheakv.pd_server import PlacementDriverServer
 
     secs = 20 if args.cpu else LIFECYCLE_SECS
     engines, joint, cluster, pds = [], [0], [], []
     start_store = soak.SoakCluster.start_store
     pd_start = PlacementDriverServer.start
+    pd_pass = PlacementDriverServer._lifecycle_pass
 
     async def watched(self, ep):  # every engine the soak starts
         await start_store(self, ep)
@@ -1751,6 +1753,16 @@ async def lifecycle_run(args, quorum_cuda, tick) -> dict:
         pds.append(self)
         return await pd_start(self, *a, **kw)
 
+    firsts = {}  # s into the soak of the PD's first lifecycle pass and merge
+
+    async def pd_pass_watched(self, *a, **kw):
+        # the PD's merge grace starts at its first lifecycle pass
+        firsts.setdefault("pass", time.perf_counter() - t0)
+        out = await pd_pass(self, *a, **kw)
+        if self.merges_ordered:
+            firsts.setdefault("merge", time.perf_counter() - t0)
+        return out
+
     samples, learned = [], []
 
     async def sampler(t0):
@@ -1760,12 +1772,15 @@ async def lifecycle_run(args, quorum_cuda, tick) -> dict:
             now = time.perf_counter()
             late = max(late, now - last - 0.05)
             last = now
-            if not learned and pds and len(
-                    pds[0].fsm.regions) >= LIFECYCLE_REGIONS:
-                # the soak gives its stores 15 s to report every region
+            if not learned and pds and not coverage_errors(
+                    pds[0].fsm.regions.values()):
+                # the soak gives its stores 15 s to report regions that
+                # tile the keyspace
                 learned.append(now - t0)
-                log(f"[8] the PD learned the {LIFECYCLE_REGIONS} regions "
-                    f"{now - t0:.3f} s into the soak")
+                log(f"[8] the PD's {len(pds[0].fsm.regions)} regions "
+                    f"tiled the keyspace {now - t0:.3f} s into the soak; "
+                    f"the PD's first lifecycle pass and merge order (s): "
+                    f"{firsts.get('pass')}, {firsts.get('merge')}")
             if now - t0 >= LIFECYCLE_SAMPLE_S * (len(samples) + 1):
                 row = lifecycle_sample(now - t0, cluster[0] if cluster
                                        else None, pds[0] if pds else None)
@@ -1777,6 +1792,7 @@ async def lifecycle_run(args, quorum_cuda, tick) -> dict:
     opts_cls = soak.StoreEngineOptions
     soak.SoakCluster.start_store = watched
     PlacementDriverServer.start = pd_watched
+    PlacementDriverServer._lifecycle_pass = pd_pass_watched
     soak.StoreEngineOptions = functools.partial(
         opts_cls, disk_budget_bytes=KV_DISK_BUDGET)
     data = tempfile.mkdtemp(prefix="tpuraft_torch_lifecycle_")
@@ -1788,15 +1804,27 @@ async def lifecycle_run(args, quorum_cuda, tick) -> dict:
         r = await soak.run_lifecycle_soak(
             secs, 4, LIFECYCLE_REGIONS, LIFECYCLE_SEED, data, False,
             device="cpu" if args.cpu else "cuda")
+    except TimeoutError:
+        if pds:  # what the PD held when the soak gave up waiting
+            pd = pds[0]
+            log(f"[8] at the timeout the PD held regions "
+                f"{sorted(pd.fsm.regions)} with leaders "
+                f"{sorted(pd.fsm.region_leaders)}, "
+                f"{pd.merges_completed} merges done; coverage: "
+                f"{coverage_errors(pd.fsm.regions.values())}")
+        raise
     finally:
         samp.cancel()
         soak.SoakCluster.start_store = start_store
         PlacementDriverServer.start = pd_start
+        PlacementDriverServer._lifecycle_pass = pd_pass
         soak.StoreEngineOptions = opts_cls
         shutil.rmtree(data, ignore_errors=True)
     res = {"regions": LIFECYCLE_REGIONS, "duration_s": secs,
            "wall_s": time.perf_counter() - t0,
            "pd_learned_s": learned[0] if learned else None,
+           "pd_first_pass_s": firsts.get("pass"),
+           "pd_first_merge_s": firsts.get("merge"),
            "launches": tick.LAUNCHES,  # read right after the path
            "fused_quorum_launches": quorum_cuda.LAUNCHES,
            "engine_ticks": sum(e.ticks for e in engines),

@@ -99,6 +99,47 @@ async def test_lifecycle_soak_on_the_cpu(tmp_path, monkeypatch):
     assert r["linearizable"] and r["hibernate_ok"], r
 
 
+async def test_lifecycle_soak_learns_regions_past_an_early_merge(
+        tmp_path, monkeypatch):
+    """The lifecycle soak's wait for its initial regions ends when the
+    PD's regions tile the keyspace, not when it holds 12 of them: here
+    region 6's leader reports only after the PD has finished a cold
+    merge of the regions it already knew, so it never holds 12, and
+    the soak still starts its traffic and keeps the keyspace covered.
+    (A card's slow store starts spread the first reports out so.)"""
+    from tests.test_torch_kv import DISK_BUDGET
+    from tpuraft_torch.rheakv.pd_server import PlacementDriverServer
+    from tpuraft_torch.rheakv.store_engine import StoreEngine
+
+    monkeypatch.setattr(soak, "StoreEngineOptions", functools.partial(
+        soak.StoreEngineOptions, disk_budget_bytes=DISK_BUDGET))
+    monkeypatch.setattr(options, "TickOptions", functools.partial(
+        options.TickOptions, backend="numpy"))
+    pds, most_held = [], [0]
+    pd_start = PlacementDriverServer.start
+
+    async def pd_watched(self, *a, **kw):
+        pds.append(self)
+        return await pd_start(self, *a, **kw)
+
+    leader_ids = StoreEngine.leader_region_ids
+
+    def late_region_6(self):
+        ids = leader_ids(self)
+        if pds and pds[0].merges_completed < 1:
+            most_held[0] = max(most_held[0], len(pds[0].fsm.regions))
+            return [rid for rid in ids if rid != 6]
+        return ids
+
+    monkeypatch.setattr(PlacementDriverServer, "start", pd_watched)
+    monkeypatch.setattr(StoreEngine, "leader_region_ids", late_region_6)
+    r = await asyncio.wait_for(soak.run_lifecycle_soak(
+        4, 4, 12, 11, str(tmp_path), False, device="cpu"), 110)
+    assert 0 < most_held[0] < 12
+    assert r["merges_completed"] > 0 and r["coverage_errors"] == [], r
+    assert r["linearizable"], r
+
+
 async def test_hotspot_soak_on_the_cpu(tmp_path, monkeypatch):
     """--hotspot --regions 24 --seed 7 for 10 s: a PD in the same
     process ranks the 3 regions of a zipfian hotspot top-K and flags

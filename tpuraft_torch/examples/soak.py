@@ -1981,7 +1981,10 @@ async def run_lifecycle_soak(duration_s: float, n_stores: int,
     # wait until the PD learned the whole fleet from heartbeats
     deadline = time.monotonic() + 15
     while time.monotonic() < deadline:
-        if len(pd.fsm.regions) >= n_regions:
+        # learned = the PD's regions tile the keyspace; a count of
+        # n_regions races the PD's own cold merges, which may absorb a
+        # region before the last one's leader reports
+        if not coverage_errors(pd.fsm.regions.values()):
             break
         await asyncio.sleep(0.1)
     else:

@@ -97,9 +97,11 @@ Phases (any failure exits non-zero; none is caught):
      a. the replica-quorum CUDA kernel against its plain torch version
         and torch.kthvalue on the card, bit for bit, at R=3 G=16,384 (the
         north star), R=5 G=1,024, R=3 G=1,024 (11(b)'s shape) and R in
-        {1, 2, 4, 7, 33} at G=1,000, on edge planes (all-zero columns,
-        ties, one row ahead, values up to 2^28 - 1, unattested rows at 0),
-        then timed;
+        {1, 2, 4, 7, 8, 9, 32, 33, 64, 65} at G=1,000 (every edge of the
+        kernel's layouts), on edge planes (all-zero columns, ties, one row
+        ahead, values up to 2^28 - 1, unattested rows at 0), then timed;
+        and on an extremes plane at each shape (INT32_MIN and INT32_MAX,
+        all-equal columns, grants of 0-255);
      b. in a process of its own after phase 8, beside no other phase:
         ReplicaPlaneCluster(3, 1024, device="cuda") with
         memory:// logs, the in-process transport and a 2 s election
@@ -145,6 +147,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -217,6 +220,20 @@ def native_paths() -> dict:
     return paths
 
 
+def ptxas_entry(line: str) -> str:
+    """The kernel and layout a ptxas "Compiling entry function" line names
+    (the fused kernels' segment width S; the replica quorum's S and
+    replicas a lane V, or its wide path), or "" for any other kernel."""
+    m = re.search(r"(fused_quorum|fused_tick)_kernelILi(\d+)EE", line)
+    if m:
+        return f"{m[1]} S={m[2]}"
+    m = re.search(r"replica_quorum_kernelILi(\d+)ELi(\d+)EE", line)
+    if m:
+        return f"replica_quorum S={m[1]} V={m[2]}"
+    return "replica_quorum wide" if "replica_quorum_wide_kernel" in line \
+        else ""
+
+
 def phase_card(args, torch, quorum_cuda) -> tuple[str, float | None]:
     if args.cpu:
         log("[1] rehearsal on the CPU: no card, no kernel build")
@@ -236,13 +253,9 @@ def phase_card(args, torch, quorum_cuda) -> tuple[str, float | None]:
     build_s = time.perf_counter() - t0
     log(f"[1] built {so.name} in {build_s:.3f} s")
     entry = ""
-    for line in out.splitlines():  # -Xptxas -v for the main-path widths
+    for line in out.splitlines():  # -Xptxas -v for every kernel's layout
         if "Compiling entry function" in line:
-            entry = next((f"{k} S={w}" for k in ("fused_quorum", "fused_tick")
-                          for w in (4, 8, 16, 32)
-                          if f"{k}_kernelILi{w}EE" in line), "") or next(
-                (f"replica_quorum R<={w}" for w in (4, 64)
-                 if f"replica_quorum_kernelILi{w}EE" in line), "")
+            entry = ptxas_entry(line)
         elif entry and ("Used" in line or "spill" in line):
             log(f"    ptxas {entry}: {line.strip()}")
     quorum_cuda.load()
@@ -2484,10 +2497,12 @@ def phase_fault_plane(child) -> dict:
 # -- phase 11: the replica plane ----------------------------------------------
 
 # 11(a): the north-star configuration (3 replicas x 16K groups,
-# BASELINE.md), 5 replicas x 1K groups, 11(b)'s own shape, and every R
-# bucket of the kernel at a ragged G
+# BASELINE.md), 5 replicas x 1K groups, 11(b)'s own shape, and each edge
+# of the kernel's layouts (segment widths 1-32, two replicas a lane up to
+# 64, one thread a group past it) at a ragged G
 REPLICA_SHAPES = [(3, 16384), (5, 1024), (3, 1024), (1, 1000), (2, 1000),
-                  (4, 1000), (7, 1000), (33, 1000)]
+                  (4, 1000), (7, 1000), (8, 1000), (9, 1000), (32, 1000),
+                  (33, 1000), (64, 1000), (65, 1000)]
 REPLICA_GROUPS = 1024       # 11(b): 3 replica endpoints x 1,024 groups
 REPLICA_ETO_MS = 2000       # phase 5's election timeout
 REPLICA_WAVES, REPLICA_WRITES = 3, 2
@@ -2511,6 +2526,26 @@ def replica_inputs(rng, r, g):
     return rel, rng.random((r, g)) < 0.5
 
 
+def replica_extremes(rng, r, g):
+    """Seeded [R, G] planes at the int32 edges: columns of INT32_MIN and
+    INT32_MAX mixed with small values, all-equal columns (INT32_MIN,
+    INT32_MAX, 0), one INT32_MAX among INT32_MIN and the reverse, and a
+    uint8 grant plane of 0, 1, 2 and 255."""
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    rel = rng.choice(np.array([lo, lo + 1, -1, 0, 1, hi - 1, hi], np.int64),
+                     (r, g)).astype(np.int32)
+    kind = rng.integers(0, 6, g)
+    for k, fill in ((0, lo), (1, hi), (2, 0)):
+        rel[:, kind == k] = fill                            # all equal
+    one = rng.integers(0, r, g)
+    for k, base, odd in ((3, lo, hi), (4, hi, lo)):
+        cols = np.flatnonzero(kind == k)
+        rel[:, cols] = base
+        rel[one[cols], cols] = odd                          # one apart
+    granted = rng.choice(np.array([0, 1, 2, 255], np.uint8), (r, g))
+    return rel, granted
+
+
 def replica_bound_ms(r, g) -> float:
     """Least time for the work: each input read once (an int32 and a
     byte plane of R x G), each output written once (two int32 rows)."""
@@ -2520,31 +2555,39 @@ def replica_bound_ms(r, g) -> float:
 def phase_replica_kernel(args, torch, dev) -> list[dict]:
     """11(a): the replica-quorum kernel against its plain version (and
     torch.kthvalue, the one PyTorch call that computes the commit half)
-    on the same inputs on the card, bit for bit, then timed."""
+    on the same inputs on the card, bit for bit, on the edge planes and
+    on an extremes plane, then timed on the edge planes."""
     from tpuraft_torch.parallel import collective
 
-    shapes = [(3, 64), (5, 32), (1, 10), (2, 10), (4, 10), (7, 10),
-              (33, 10)] if args.cpu else REPLICA_SHAPES
+    shapes = [(3, 64), (5, 32), *((r, 10) for r in (1, 2, 4, 7, 8, 9, 32, 33,
+                                                   64, 65))] \
+        if args.cpu else REPLICA_SHAPES
     rng = np.random.default_rng(SEED + 11)
     rows = []
     for r, g in shapes:
-        rel, granted = (torch.from_numpy(a).to(dev)
-                        for a in replica_inputs(rng, r, g))
         q = r // 2 + 1
-        commit, votes = collective.replica_quorum(rel, granted, r)
-        want_c = collective.replica_commit_point(rel, r)
-        want_v = collective.replica_vote_count(granted)
-        lib_c = torch.kthvalue(rel, r - q + 1, dim=0).values
-        if not args.cpu:
-            torch.cuda.synchronize()
-        for name, t, w in (("commit", commit, want_c), ("votes", votes, want_v),
-                           ("kthvalue", lib_c, want_c)):
-            check(t.device == w.device and t.dtype == w.dtype
-                  and t.shape == (g,), f"{name}: wrong result layout")
-            check(torch.equal(t, w), f"replica_quorum {name} differs from "
-                  f"plain at R={r} G={g}")
-        err = max(int((t.to(torch.int64) - w.to(torch.int64)).abs().max())
-                  for t, w in ((commit, want_c), (votes, want_v)))
+        err = 0
+        checked = []
+        for planes in (replica_inputs(rng, r, g), replica_extremes(rng, r, g)):
+            rel, granted = (torch.from_numpy(a).to(dev) for a in planes)
+            checked.append((rel, granted))
+            commit, votes = collective.replica_quorum(rel, granted, r)
+            want_c = collective.replica_commit_point(rel, r)
+            want_v = collective.replica_vote_count(granted)
+            lib_c = torch.kthvalue(rel, r - q + 1, dim=0).values
+            if not args.cpu:
+                torch.cuda.synchronize()
+            for name, t, w in (("commit", commit, want_c),
+                               ("votes", votes, want_v),
+                               ("kthvalue", lib_c, want_c)):
+                check(t.device == w.device and t.dtype == w.dtype
+                      and t.shape == (g,), f"{name}: wrong result layout")
+                check(torch.equal(t, w), f"replica_quorum {name} differs "
+                      f"from plain at R={r} G={g} ({granted.dtype} grants)")
+            err = max(err, *(int((t.to(torch.int64) - w.to(torch.int64))
+                                 .abs().max())
+                             for t, w in ((commit, want_c), (votes, want_v))))
+        rel, granted = checked[0]  # the edge planes are the timed ones
         row = {"R": r, "G": g, "max_abs_err": err,
                "bound_ms": replica_bound_ms(r, g)}
         if args.cpu or args.quick:
@@ -2566,7 +2609,7 @@ def phase_replica_kernel(args, torch, dev) -> list[dict]:
                 TIMED_LAUNCHES)
         rows.append(row)
         log(f"[11] replica_quorum R={r} G={g}: bit-exact vs plain and "
-            f"torch.kthvalue; " + ", ".join(
+            f"torch.kthvalue, edge and extremes planes; " + ", ".join(
                 f"{k}={v}" for k, v in row.items() if k.endswith("ms")))
     return rows
 

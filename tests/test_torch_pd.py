@@ -1345,13 +1345,18 @@ async def test_pd_lifecycle_merges_cold_regions_end_to_end(drive):
         await kv.start()
         for k in (b"a", b"h", b"p", b"x"):
             assert await kv.put(k, b"v-" + k)
-        stale_routes = [r.copy() for r in kv.route_table.list_regions()]
         await _wait(lambda: len(pd.fsm.regions) <= 2
                     and not pd.fsm.pending_merges,
                     timeout_s=30.0, what="cold merges down to the floor")
         assert pd.merges_completed >= 2
         assert coverage_errors(pd.fsm.regions.values()) == []
-        kv.route_table.reset([r.copy() for r in stale_routes])
+        # pin the boot view back: all four regions, so each key of a
+        # merged-away region routes through it and bounces.  A snapshot of
+        # the client's own table is no pre-merge view: the PD can finish
+        # both merges during the puts above, and a client that learned the
+        # new layout from epoch bounces alone then holds no retired route
+        # (merged_evictions stayed 0, in either package's copy of this test)
+        kv.route_table.reset([r.copy() for r in c.region_template])
         for k in (b"a", b"h", b"p", b"x"):
             assert await kv.get(k) == b"v-" + k
         assert await kv.put(b"hh", b"post-merge")

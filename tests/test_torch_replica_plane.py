@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import replica_inputs
+from chip_smoke import replica_extremes, replica_inputs
 from tpuraft_torch.entity import Task
 from tpuraft_torch.parallel import collective
 from tpuraft_torch.parallel.collective import (replica_commit_point,
@@ -79,10 +79,18 @@ def test_replicated_tick_matches_the_jax_mesh(shape, r, g):
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
 
 
-@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 7, 33])
+# every edge of the kernel's layouts: segment widths 1-32 (R at and past
+# each power of two), two replicas a lane (33-64), one thread a group (65)
+LAYOUT_EDGES = [1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 31, 32, 33, 63, 64, 65]
+INT32_MIN = np.iinfo(np.int32).min
+
+
+@pytest.mark.parametrize("r", LAYOUT_EDGES)
 def test_plain_version_is_the_sort_oracle(r):
-    """Every R the kernel is tested at, ragged G, numpy inputs and a
-    uint8 grant plane: the plain version equals the oracle."""
+    """Every R the kernel is tested at, ragged G and G = 1, numpy inputs,
+    uint8 grant planes and planes at the int32 edges (INT32_MIN and
+    INT32_MAX, all-equal columns): the plain version equals the
+    oracle."""
     rng = np.random.default_rng(r)
     match, granted = replica_inputs(rng, r, 1000)
     want_c, want_v = _oracle(match, granted)
@@ -94,6 +102,51 @@ def test_plain_version_is_the_sort_oracle(r):
     c, v = run(match)  # no grant plane: a zero plane
     np.testing.assert_array_equal(c.numpy(), want_c)
     assert not v.any()
+    for g in (999, 1):
+        match, granted = replica_extremes(rng, r, g)
+        match[0, -1], match[-1, -1] = INT32_MIN, -INT32_MIN - 1
+        want_c, want_v = _oracle(match, granted != 0)
+        c, v = run(match, granted)
+        np.testing.assert_array_equal(c.numpy(), want_c)
+        np.testing.assert_array_equal(v.numpy(), want_v)
+
+
+def _wrapped_oracle(match):
+    """The JAX package's pick: it sorts -match, and -INT32_MIN wraps to
+    INT32_MIN, so INT32_MIN ranks above every other value."""
+    key = np.where(match == INT32_MIN, 2**31, match.astype(np.int64))
+    pick = np.sort(key, axis=0)[::-1][match.shape[0] // 2]
+    return np.where(pick == 2**31, INT32_MIN, pick).astype(np.int32)
+
+
+@pytest.mark.parametrize("r", LAYOUT_EDGES)
+def test_plain_version_matches_the_jax_mesh_at_every_layout_edge(r):
+    """The plain version (what the card's kernel is held to) against the
+    JAX replicated_tick on the (1, 8) mesh, at every edge of the
+    kernel's layouts, on the edge planes and on planes at the int32
+    edges.  Equal on every column that holds no INT32_MIN; on those that
+    do, the port takes the sort oracle and the JAX package parts from it
+    (its -INT32_MIN wraps: the reference-side finding pinned here).
+    Real matches never reach INT32_MIN."""
+    import jax.numpy as jnp
+
+    from tpuraft.parallel.collective import replicated_tick as jax_tick
+
+    jax_run = jax_tick(_mesh((1, 8)), n_replicas=r)
+    run = replicated_tick(r, device="cpu")
+    rng = np.random.default_rng(7000 + r)
+    for match, granted in (replica_inputs(rng, r, 1000),
+                           replica_extremes(rng, r, 1000),
+                           replica_extremes(rng, r, 8)):
+        granted = granted != 0
+        want_c, want_v = (np.asarray(a) for a in jax_run(
+            jnp.asarray(match), jnp.asarray(granted)))
+        c, v = (t.numpy() for t in run(match, granted))
+        np.testing.assert_array_equal(v, want_v)
+        low = (match == INT32_MIN).any(axis=0)
+        np.testing.assert_array_equal(c[~low], want_c[~low])
+        np.testing.assert_array_equal(c, _oracle(match, granted)[0])
+        np.testing.assert_array_equal(want_c, _wrapped_oracle(match))
 
 
 def test_plain_version_counts_no_launch():
@@ -468,22 +521,79 @@ async def test_unknown_backend_is_refused():
 # ---- the kernel on a card ---------------------------------------------------
 
 
+def _kernel_against_plain(match, granted, r):
+    """One call of the kernel on the card against the plain version on
+    the same planes (numpy arrays or tensors); exactly one launch."""
+    m, gr = torch.as_tensor(match).cuda(), torch.as_tensor(granted).cuda()
+    before = collective.LAUNCHES
+    c, v = replica_quorum(m, gr, r)
+    assert collective.LAUNCHES == before + 1
+    wc, wv = replica_commit_point(m, r), replica_vote_count(gr)
+    torch.cuda.synchronize()
+    g = match.shape[1]
+    assert c.is_cuda and c.dtype == torch.int32 and c.shape == (g,)
+    assert torch.equal(c, wc), (r, g, granted.dtype)
+    assert torch.equal(v, wv), (r, g, granted.dtype)
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_cuda():
-    """Every R bucket and the wide path, ragged G, the edge planes: the
-    kernel equals the plain version on the card, one launch a call."""
+    """Every R from 1 to 65 (every segment width, two replicas a lane,
+    the wide path) and R = 130, at G = 1, 7, 1,000 and 16,384: on the
+    edge planes, on planes at the int32 edges (INT32_MIN and INT32_MAX,
+    all-equal columns) and with a uint8 grant plane of 0, 1, 2 and 255,
+    the kernel equals the plain version on the card, one launch a
+    call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(5)
-    shapes = [(3, 16384), (5, 1024), (1, 1000), (2, 1000), (4, 1000),
-              (7, 1000), (33, 1000), (65, 300), (8, 1), (16, 257)]
-    before = collective.LAUNCHES
-    for r, g in shapes:
-        match, granted = replica_inputs(rng, r, g)
-        m, gr = torch.from_numpy(match).cuda(), torch.from_numpy(granted).cuda()
-        c, v = replica_quorum(m, gr, r)
-        wc, wv = replica_commit_point(m, r), replica_vote_count(gr)
-        torch.cuda.synchronize()
-        assert c.is_cuda and torch.equal(c, wc), (r, g)
-        assert torch.equal(v, wv), (r, g)
-    assert collective.LAUNCHES == before + len(shapes)
+    for r in [*range(1, 66), 130]:
+        for g in (1, 7, 1000, 16384):
+            _kernel_against_plain(*replica_inputs(rng, r, g), r)
+            _kernel_against_plain(*replica_extremes(rng, r, g), r)
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_past_2_30_lanes():
+    """R = 3 (4 lanes a group) at G = 2^28 + 7: the launch's lanes pass
+    2^30, so its groups span two rows of the grid, and the groups on both
+    sides of the seam equal the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    r, g = 3, (1 << 28) + 7
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    match = torch.randint(-2**31, 2**31 - 1, (r, g), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    granted = torch.randint(0, 256, (r, g), dtype=torch.uint8,
+                            device="cuda", generator=gen)
+    _kernel_against_plain(match, granted, r)
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_random_planes():
+    """Property: on random planes (R <= 64, G <= 4,096; values from a
+    few distinct ones, so ties abound, or from the whole int32 range;
+    bool or uint8 grants) the kernel equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    @settings(max_examples=300, deadline=None)
+    @given(r=st.integers(1, 64), g=st.integers(1, 4096),
+           seed=st.integers(0, 2**32 - 1), few=st.booleans(),
+           as_bytes=st.booleans())
+    def prop(r, g, seed, few, as_bytes):
+        rng = np.random.default_rng(seed)
+        if few:
+            values = rng.integers(-2**31, 2**31, 3, dtype=np.int64)
+            match = rng.choice(values, (r, g)).astype(np.int32)
+        else:
+            match = rng.integers(-2**31, 2**31, (r, g),
+                                 dtype=np.int64).astype(np.int32)
+        granted = (rng.integers(0, 256, (r, g)).astype(np.uint8)
+                   * (rng.random((r, g)) < 0.5)) if as_bytes \
+            else rng.random((r, g)) < 0.5
+        _kernel_against_plain(match, granted, r)
+
+    prop()

@@ -13,6 +13,11 @@
 // Any block size that is a multiple of 32 works: a lane's group is
 // (blockIdx.x * blockDim.x + threadIdx.x) / S.
 //
+// The replica quorum (replica_quorum.cu) runs on the same lanes with the
+// planes transposed: lane k of a segment holds replica row k of the
+// [R, G] planes, and segment_kth_largest takes the plain q-th largest of
+// the segment (no voter mask, no joint row), V values a lane.
+//
 // The order statistic equals the sort-based oracle (tpuraft_torch/ops/
 // ballot.py) bit for bit: masked-out slots take the value -2^30, all P slots
 // of the row are ranked, and the value at sorted position q - 1 is picked,
@@ -74,6 +79,36 @@ __device__ __forceinline__ int32_t segment_max(int32_t v) {
   for (int off = S / 2; off > 0; off >>= 1)
     v = max(v, __shfl_xor_sync(kFullWarp, v, off, S));
   return v;
+}
+
+// The q-th largest of the values a segment holds, V a lane (lane k holds
+// slots k, k + S, ..., k + (V - 1) * S), 1 <= q <= the number of live
+// slots; every lane of the warp must call it, and every lane of the
+// segment ends with the result.  Rank counting, as order_stats does: the
+// q-th largest of a multiset w is max{ w_j : #{i : w_i >= w_j} >= q }, one
+// loop of S shuffles of each of the V values.  A dead slot must hold
+// INT32_MIN: it adds to no count but that of a slot whose own value is
+// INT32_MIN, whose rank test holds anyway (every live value is >= it and
+// q <= the live count), and as a candidate it is the least value, so a
+// live INT32_MIN or INT32_MAX needs no special case either.
+template <int S, int V>
+__device__ __forceinline__ int32_t segment_kth_largest(
+    const int32_t (&v)[V], int q) {
+  int c[V] = {};
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int32_t o = __shfl_sync(kFullWarp, v[j], i, S);
+#pragma unroll
+      for (int m = 0; m < V; ++m) c[m] += o >= v[m] ? 1 : 0;
+    }
+  }
+  int32_t best = INT32_MIN;
+#pragma unroll
+  for (int m = 0; m < V; ++m)
+    if (c[m] >= q) best = max(best, v[m]);
+  return segment_max<S>(best);
 }
 
 // One lane's slot of the five [G, P] planes the quorum reads (0 and false

@@ -132,7 +132,24 @@ Phases (any failure exits non-zero; none is caught):
         ticks x 4, fold launches = folds x 4;
      d. the replica plane over a 2 x 4 grid (4 replicas x 8 groups, 3
         waves of 5 writes, one replica stopped, one more write): every
-        log equals the acknowledged writes, launches = plane ticks x 4.
+        log equals the acknowledged writes, launches = plane ticks x 4;
+ 13. the driver's entry points and bench.py's device plane
+     (tpuraft_torch/graft_entry.py and device_plane.py), after phase 10's
+     child has ended, beside no other phase:
+     a. entry(): the fused tick at 1,024 x 8 against the plain tick,
+        bit for bit, one launch;
+     b. dryrun_multichip(8) over 8 shards (sharing cuda:0 on one card):
+        the sharded tick against the plain tick on the whole state, the
+        replica quorum over a 2 x 4 grid against its plain version and
+        the sort oracle, and a 4 x 8 replica-plane cluster over the grid
+        committing two waves; one launch a shard, one replica-quorum
+        launch a groups-shard a plane tick;
+     c. bench.py's loop at 16,384 x 8 (3 voters, 400 ticks after 40
+        warm-up ticks, pinned staging ring, window sized from the link),
+        then one profiled pass: every tick's commit row against the
+        plain tick's over the same acks on the card, launches = ticks;
+        the median pass's commits/s, ticks/s, ack p50/p99, dispatch
+        cost, window, completion RTT and the card's busy share logged.
 With --cpu the server processes of legs C and D and of phase 9 run
 their engines on the CPU. The last four lines are the native libraries,
 the card, the kernel table and the result, the last two JSON.
@@ -3321,6 +3338,186 @@ def phase_mesh(args, torch, quorum_cuda, tick, dev) -> dict:
     return res
 
 
+# -- phase 13: the driver's entry points and the pipelined device plane -------
+
+# bench.py:43-50: 16,384 groups of 8 peer slots, 3 voters, 32 entries a
+# follower a tick, 400 ticks after 40 warm-up ticks
+PLANE_SHAPE = (16384, 8)
+PLANE_VOTERS = 3
+PLANE_BATCH = 32
+PLANE_TICKS = 400
+PLANE_WARMUP = 40
+DRYRUN_SHARDS = 8           # __graft_entry__.py's dryrun_multichip(8)
+
+
+def on_device(obj, dev):
+    """A GroupState or TickParams (any dataclass of tensors) on dev."""
+    return type(obj)(**{f.name: getattr(obj, f.name).to(dev)
+                        for f in dataclasses.fields(obj)})
+
+
+def same_fields(got, want, what: str) -> None:
+    """Every field of two GroupStates or TickOutputs equal, bit for bit."""
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        check(a.dtype == b.dtype and a.cpu().equal(b.cpu()),
+              f"{what}: {f.name} differs from the plain version")
+
+
+def phase_entry_points(args, torch, dev) -> dict:
+    """13(a)-(b): the port's __graft_entry__ counterparts on the card."""
+    from tpuraft_torch import graft_entry
+    from tpuraft_torch.ops import tick
+    from tpuraft_torch.parallel import collective
+
+    # (a) entry(): the fused tick at 1,024 x 8 against the plain tick
+    tick.LAUNCHES = 0  # the path's count starts here
+    fn, fargs = graft_entry.entry(device=dev)
+    new_state, out = fn(*fargs)
+    entry_launches = tick.LAUNCHES
+    want_state, want_out = tick.raft_tick_reference(*fargs)
+    same_fields(out, want_out, "13(a) entry() outputs")
+    same_fields(new_state, want_state, "13(a) entry() state")
+    check(bool(out.commit_advanced.any()), "13(a): no commit advanced")
+    if not args.cpu:
+        check(entry_launches == 1, f"13(a): {entry_launches} launches")
+    log(f"[13a] entry() on {dev}: 1,024 x 8, all 11 outputs and 15 state "
+        f"fields bit-exact against the plain tick, {entry_launches} "
+        f"fused-tick launch")
+
+    # (b) dryrun_multichip(8) over a named device list
+    devs = mesh_of(args, torch, DRYRUN_SHARDS)
+    tick.LAUNCHES = collective.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(DRYRUN_SHARDS, devs)
+    wall = time.perf_counter() - t0
+    sharded_launches, replica_launches = tick.LAUNCHES, collective.LAUNCHES
+    state, params = graft_entry.sharded_plane_state(DRYRUN_SHARDS)
+    ws, wo = tick.raft_tick_reference(on_device(state, dev), 1,
+                                      on_device(params, dev))
+    got_state, got_out = res["sharded"]
+    same_fields(got_out, wo, "13(b) plane (a) outputs")
+    same_fields(got_state, ws, "13(b) plane (a) state")
+    match, granted = graft_entry.replica_plane_inputs(DRYRUN_SHARDS)
+    r = match.shape[0]
+    m, gr = torch.from_numpy(match).to(dev), torch.from_numpy(granted).to(dev)
+    commit, votes = res["replica"]
+    check(np.array_equal(commit, collective.replica_commit_point(
+        m, r).cpu().numpy()), "13(b) plane (b) commit differs from plain")
+    check(np.array_equal(votes, collective.replica_vote_count(
+        gr).cpu().numpy()), "13(b) plane (b) votes differ from plain")
+    check(np.array_equal(commit, np.sort(match, 0)[::-1][r // 2]),
+          "13(b) plane (b) commit differs from the oracle")
+    cluster = res["cluster"]
+    g_dim = DRYRUN_SHARDS // 2
+    if not args.cpu:
+        check(sharded_launches == DRYRUN_SHARDS,
+              f"13(b) plane (a): {sharded_launches} fused-tick launches for "
+              f"{DRYRUN_SHARDS} shards")
+        check(replica_launches == g_dim * (1 + cluster["plane_ticks"]),
+              f"13(b): {replica_launches} replica-quorum launches for plane "
+              f"(b) and {cluster['plane_ticks']} plane ticks x {g_dim}")
+    rec = {"devices": [str(d) for d in devs], "wall_s": wall,
+           "entry_launches": entry_launches,
+           "sharded_launches": sharded_launches,
+           "replica_launches": replica_launches, "cluster": cluster}
+    log("[13b] dryrun_multichip(8): plane (a) bit-exact against the plain "
+        "tick, plane (b) against the plain quorum and the oracle, (b') "
+        "passed; " + json.dumps(rec))
+    return rec
+
+
+def plain_plane_rows(torch, dev, g, p, advances, warmup, n):
+    """The plain tick on dev over run_plane's acks, one tick at a time
+    with the state carried (the 5 link probes after the warm-up): each
+    tick's commit row, stacked on dev."""
+    from tpuraft_torch import device_plane
+    from tpuraft_torch.ops import tick
+
+    state = device_plane.leader_state(g, p, PLANE_VOTERS, dev)
+    params = tick.TickParams.make(1000, 100, 900, device=dev)
+    host = np.zeros((g, p), np.int32)
+    rows = []
+    for i in range(n):
+        if i == warmup:
+            for _ in range(device_plane.RTT_PROBES):
+                state, _ = tick.raft_tick_reference(state, 0, params)
+        host += advances[i]
+        state = dataclasses.replace(
+            state, match_rel=torch.from_numpy(host.copy()).to(dev))
+        state, out = tick.raft_tick_reference(state, i, params)
+        rows.append(out.commit_rel)
+    return torch.stack(rows)
+
+
+def phase_device_plane(args, torch, dev, tick_rows) -> dict:
+    """13(c): bench.py's pipelined loop at its full shape, every tick's
+    commit row against the plain tick's, launches = ticks."""
+    from tpuraft_torch import device_plane
+    from tpuraft_torch.ops import tick
+
+    (g, p), ticks, warmup = (((256, 8), 60, 4) if args.cpu else
+                             (PLANE_SHAPE, PLANE_TICKS, PLANE_WARMUP))
+    tick.LAUNCHES = 0  # the path's count starts here
+    t0 = time.perf_counter()
+    res = device_plane.run_plane(g, p, PLANE_VOTERS, PLANE_BATCH, ticks,
+                                 warmup, SEED, device=dev, record=True)
+    run_s = time.perf_counter() - t0
+    launches = tick.LAUNCHES
+    if not args.cpu:
+        check(launches == res["ticks_run"] == res["launches"],
+              f"13(c): {launches} fused-tick launches for "
+              f"{res['ticks_run']} ticks")
+    n = res["submitted"]
+    half = res["profiled_pass"]["ticks"]
+    advances = device_plane.plane_advances(
+        g, p, PLANE_VOTERS, PLANE_BATCH, warmup + ticks + half, SEED)
+    t1 = time.perf_counter()
+    want = plain_plane_rows(torch, dev, g, p, advances, warmup, n)
+    got = torch.from_numpy(res.pop("rows")).to(dev)
+    bad = (got != want).any(dim=1).nonzero().flatten()[:5].tolist()
+    check(not bad, f"13(c): the commit rows of ticks {bad} differ from "
+          f"the plain tick's")
+    check(res["total_commits"] == int(want[-1].sum()),
+          "13(c): total commits differ from the plain tick's")
+    check_s = time.perf_counter() - t1
+    prof = res["profiled_pass"]
+    graph = next((r for r in tick_rows if (r["G"], r["P"]) == (g, p)), None)
+    rec = {**res, "fused_tick_launches": launches, "run_s": run_s,
+           "check_s": check_s,
+           "tick_graph_ms": graph["ms"] if graph else None,
+           # the busy share of the median pass: device time a tick (the
+           # profiled pass) x its unprofiled ticks/s
+           "busy_share_at_median": (
+               prof["device_busy_us_per_tick"] * res["ticks_per_sec"] / 1e6
+               if prof.get("device_busy_us_per_tick") else None)}
+    log(f"[13c] device plane {g} x {p} on {dev}: {n} ticks submitted, "
+        f"every commit row bit-exact against the plain tick "
+        f"(check {check_s:.3f} s), {launches} fused-tick launches for "
+        f"{res['ticks_run']} ticks; median pass "
+        f"{res['commits_per_sec']:.1f} commits/s, "
+        f"{res['ticks_per_sec']:.3f} ticks/s, ack p50 "
+        f"{res['ack_p50_ms']:.4f} / p99 {res['ack_p99_ms']:.4f} ms, "
+        f"dispatch {res['dispatch_ms']:.4f} ms, depth "
+        f"{res['pipeline_depth']}, completion RTT "
+        f"{res['completion_rtt_ms']:.4f} ms, busy share "
+        f"{prof['busy_share']} (profiled pass), "
+        f"{rec['busy_share_at_median']} (at the median's ticks/s)")
+    log("[13c] " + json.dumps(rec))
+    return rec
+
+
+def phase_driver_entry(args, torch, dev, tick_rows) -> dict:
+    """Phase 13, after phase 10's child has ended, beside no other phase."""
+    t0 = time.perf_counter()
+    res = {"entry": phase_entry_points(args, torch, dev),
+           "plane": phase_device_plane(args, torch, dev, tick_rows)}
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"[13] driver entry points and device plane done in "
+        f"{res['wall_s']:.3f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -3394,6 +3591,7 @@ def main() -> int:
         mesh_res = phase_mesh(args, torch, quorum_cuda, tick, dev)
         fleet = asyncio.run(phase_fleet(args))
         phase_fault_plane(faults)
+        driver = phase_driver_entry(args, torch, dev, tick_rows)
     finally:
         stop_fault_plane(faults)
     paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
@@ -3439,6 +3637,16 @@ def main() -> int:
                       mesh_res["e2e"]["engine_ticks"]},
               mesh_shards={"phase12b_mesh_engine": MESH_SHARDS,
                            "phase12c_mesh_raft_groups": MESH_E2E_SHARDS},
+              phase13_launches={
+                  "phase13a_entry": driver["entry"]["entry_launches"],
+                  "phase13b_dryrun_sharded_tick":
+                      driver["entry"]["sharded_launches"],
+                  "phase13c_device_plane":
+                      driver["plane"]["fused_tick_launches"]},
+              phase13_ticks={"phase13a_entry": 1,
+                             "phase13b_dryrun_sharded_tick": DRYRUN_SHARDS,
+                             "phase13c_device_plane":
+                                 driver["plane"]["ticks_run"]},
               server_engine_ticks={"phase9_supervised_fleet": {
                   ep: m["engine_ticks"]
                   for ep, m in fleet["servers"].items()}},
@@ -3447,7 +3655,10 @@ def main() -> int:
               "their own processes (server_engine_ticks: each engine tick "
               "there is one fused-tick launch, read through the servers' "
               "metrics RPC); phase 7 (the engine soak) and phase 8 (the "
-              "region lifecycle) are in launches_by_path"),
+              "region lifecycle) are in launches_by_path; phase 13 (the "
+              "driver's entry points and bench.py's pipelined device "
+              "plane) in phase13_launches, one a tick (a shard a tick in "
+              "13(b)): phase13_ticks"),
     ]
     main_row = next(r for r in replica_rows if (r["R"], r["G"]) == (
         3, replica_res["groups"])) if not args.cpu else replica_rows[0]
@@ -3470,10 +3681,14 @@ def main() -> int:
         "plane_ticks": replica_res["plane_ticks"],
         "grid_launches": mesh_res["plane"]["launches"],
         "grid_plane_ticks": mesh_res["plane"]["plane_ticks"],
+        "phase13b_launches": driver["entry"]["replica_launches"],
+        "phase13b_plane_ticks": driver["entry"]["cluster"]["plane_ticks"],
         "main_path": "launches counts phase 11(b), 3 x 1,024 groups of the "
                      "replica plane in its own process: one launch a plane "
                      "tick; grid_launches counts phase 12(d), the plane over "
-                     "a 2 x 4 grid: one launch a groups-shard a plane tick",
+                     "a 2 x 4 grid: one launch a groups-shard a plane "
+                     "tick; phase13b_launches counts phase 13(b), plane (b) "
+                     "and the (b') cluster over a 2 x 4 grid",
         "by_shape": replica_rows})
     fold_rows = mesh_res["kernels"]["fold_rows"]
     fold_main = fold_rows[0]  # a shard of the mesh engines' G = 65,536

@@ -75,6 +75,7 @@ WRITTEN = [
     "ops/deadline_fold.py",
     "examples/__init__.py",
     "parallel/__init__.py", "parallel/collective.py", "parallel/mesh.py",
+    "graft_entry.py", "device_plane.py",
 ]
 
 

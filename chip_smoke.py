@@ -149,7 +149,24 @@ Phases (any failure exits non-zero; none is caught):
         then one profiled pass: every tick's commit row against the
         plain tick's over the same acks on the card, launches = ticks;
         the median pass's commits/s, ticks/s, ack p50/p99, dispatch
-        cost, window, completion RTT and the card's busy share logged.
+        cost, window, completion RTT and the card's busy share logged;
+ 14. the bench family (bench_torch_scale.py, bench_torch_e2e.py and
+     bench_torch_multichip.py, each in its own processes as a user runs
+     it; (a) and (b) beside (c)), after phase 13, beside no other phase:
+     a. one ladder rung: 1,024 groups x 3 endpoints in one process, each
+        endpoint's engine on the card and its own multilog journal, a
+        2 s election timeout released over 3 s, every group led, 4 s of
+        paced writes:
+        no error, every acknowledged write applied on all 3 replicas,
+        each engine's launches = its ticks;
+     b. 3 store processes over the native transport at 64 groups (1 s
+        warm-up, 3 s measured, LAT and BRK): every store exits 0,
+        commits and no error, every leader placed, launches = ticks in
+        every store;
+     c. --smoke over 8 shards of cuda:0 at 1,024 groups, every lane
+        assertion holding, launches = ticks x 8 and fold launches =
+        folds x 8; --engine-shape at 1,024 groups, launches = ticks and
+        the tick rate logged.
 With --cpu the server processes of legs C and D and of phase 9 run
 their engines on the CPU. The last four lines are the native libraries,
 the card, the kernel table and the result, the last two JSON.
@@ -3007,229 +3024,24 @@ def phase_mesh_kernels(args, torch, dev) -> dict:
     return res
 
 
-class StubReplicators:
-    def all(self):
-        return []
-
-
-class StubNode:
-    """The handlers the tick schedules, by reference; never run."""
-
-    replicators = StubReplicators()
-
-    def is_leader(self):
-        return True
-
-    def _check_dead_nodes(self):
-        pass
-
-    def _on_election_due(self):
-        pass
-
-    def _on_engine_elected(self):
-        pass
-
-    def _on_engine_quorum_dead(self):
-        pass
-
-    def _on_snapshot_due(self):
-        pass
-
-
-class StubCtrl:
-    """An EngineControl stand-in (bench_multichip.py's): the surface the
-    engine's apply pass touches, counting the deliveries it schedules."""
-
-    def __init__(self, engine, slot: int, counts: dict):
-        self.engine, self.slot, self.counts = engine, slot, counts
-        self.node = StubNode()
-
-    def _adopt_eto(self, eff_eto_ms: int) -> None:
-        pass
-
-    def push_election_deadline(self, now_ms=None) -> None:
-        e = self.engine
-        now = e.now_ms() if now_ms is None else now_ms
-        e.elect_deadline[self.slot] = now + int(e.eto_ms[self.slot])
-
-    def schedule(self, name: str, handler) -> None:
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def maybe_quiesce(self, now: int) -> None:
-        pass
-
-    def wake_from_quiescence(self, reason: str = "activity", *a, **kw):
-        pass
-
-
-class StubFence:
-    __slots__ = ("done",)
-    resolved = 0
-
-    def __init__(self):
-        self.done = False
-
-    def note_quorum(self):
-        self.done = True
-        StubFence.resolved += 1
-
-
-def host_next_deadline(e) -> int:
-    """MultiRaftEngine._next_deadline's host scan, on the engine's rows."""
-    hc = e.has_ctrl & ~e.quiescent
-    ec, ld = hc & (e.role <= 1), hc & (e.role == 2)
-    nxt = 1 << 60
-    if ec.any():
-        nxt = min(nxt, int(e.elect_deadline[ec].min()))
-    if ld.any():
-        nxt = min(nxt, int(e.hb_deadline[ld].min()),
-                  int(e.stepdown_deadline[ld].min()))
-    return nxt
-
-
 async def phase_mesh_engine(args, torch) -> dict:
     """12(b): bench_multichip.py's mesh lanes (`_drive_mesh`, the --scale
-    rung) on the port: one engine of 65,536 groups, P=4, over 8 shards,
-    driven for MESH_ENGINE_SECS by stub controls; the witness clamp holds
-    and engages, the stepdown, fence and election lanes deliver, every
-    fence resolves, every engine tick is one fused-tick launch a shard,
-    and every deadline fold (one a round, as the engine's loop folds) one
+    rung) on the port, through bench_torch_multichip.py's drive_mesh: one
+    engine of 65,536 groups, P=4, over 8 shards, driven for
+    MESH_ENGINE_SECS by stub controls; the witness clamp holds and
+    engages, the stepdown, fence and election lanes deliver, every fence
+    resolves, every engine tick is one fused-tick launch a shard, and
+    every deadline fold (one a round, as the engine's loop folds) one
     fold launch a shard and equal to the host scan."""
-    from tpuraft_torch.conf import Configuration
-    from tpuraft_torch.core.engine import (ROLE_FOLLOWER, MultiRaftEngine)
-    from tpuraft_torch.ops import deadline_fold, tick
-    from tpuraft_torch.options import TickOptions
+    from bench_torch_multichip import drive_mesh
 
     G = 1024 if args.cpu else MESH_ENGINE_GROUPS
     secs = 2 if args.cpu else MESH_ENGINE_SECS
-    devs = mesh_of(args, torch, MESH_SHARDS)
-    rng = np.random.default_rng(SEED + 21)
-    tick.LAUNCHES = 0  # the path's counts start here
-    deadline_fold.LAUNCHES = 0
-    StubFence.resolved = 0
-    t_boot = time.perf_counter()
-    eng = MultiRaftEngine(TickOptions(
-        max_groups=G, max_peers=4, mesh_devices=MESH_SHARDS, device=devs,
-        tick_interval_ms=20, eager_commit=False,
-        density_aware_timeouts=False))
-    await eng.start()
-    check(eng._deadline_fold is not None, "mesh mode did not engage")
-    fold_calls = [0]
-    fold = eng._deadline_fold
-
-    def counted(*rows):
-        fold_calls[0] += 1
-        return fold(*rows)
-
-    eng._deadline_fold = counted
-    factory = eng.ballot_box_factory()
-    counts: dict = {}
-    commits = [0]
-    confs = {
-        "data": Configuration.parse("10.0.0.1:80,10.0.0.2:80,10.0.0.3:80"),
-        "witness": Configuration.parse(
-            "10.0.0.1:80,10.0.0.2:80,10.0.0.3:80/witness"),
-        # witness-majority rows: the degenerate state the commit clamp
-        # guards against (the probe slots)
-        "probe": Configuration.parse(
-            "10.0.0.1:80,10.0.0.2:80/witness,10.0.0.3:80/witness"),
-    }
-    self_peer = confs["data"].peers[0]
-    boxes = []
-    kinds = np.zeros(G, dtype=np.int8)
-    for s in range(G):
-        box = factory(lambda idx, _c=commits: _c.__setitem__(0, _c[0] + 1))
-        kind = "probe" if s % 64 == 62 else (
-            "witness" if s % 4 == 3 else "data")
-        kinds[s] = {"data": 0, "witness": 1, "probe": 2}[kind]
-        box.update_conf(confs[kind], Configuration())
-        eng.register_ctrl(StubCtrl(eng, s, counts), self_peer,
-                          eto_ms=500, hb_ms=100, lease_ms=450)
-        boxes.append(box)
-    now = eng.now_ms()
-    leaders = np.arange(G) % 2 == 0
-    lead = np.nonzero(leaders)[0]
-    for s in lead:
-        boxes[s].reset_pending_index(1)
-    eng.role[~leaders] = ROLE_FOLLOWER
-    eng.elect_deadline[:] = now + 3_600_000
-    sample = rng.choice(np.nonzero(~leaders)[0],
-                        size=min(64, int((~leaders).sum())), replace=False)
-    eng.elect_deadline[sample] = now + 50
-    eng.hb_deadline[:] = now + 3_600_000
-    eng.stepdown_deadline[:] = now + rng.integers(1, 250, G)
-    boot_s = time.perf_counter() - t_boot
-    probe = kinds == 2
-    pn = np.nonzero(probe)[0]
-    lead_probe = probe & leaders
-    eng.match_abs[np.ix_(pn, [1, 2])] = 9
-    eng.match_abs[pn, 0] = 3
-    drive = lead[~probe[lead]]
-
-    t0 = time.perf_counter()
-    rounds = 0
-    while time.perf_counter() - t0 < secs:
-        rounds += 1
-        now = eng.now_ms()
-        eng.last_ack[np.ix_(lead, [0, 1, 2])] = now
-        eng.match_abs[np.ix_(drive, [0, 1])] = rounds
-        eng.match_abs[drive, 2] = max(0, rounds - 1)
-        for s in lead[(rounds % 8)::16][:256]:
-            eng.arm_read_fence(int(s), StubFence())
-        eng.tick_once()
-        # the engine's loop folds once an iteration: so does the drive
-        nxt = eng._next_deadline()
-        check(nxt == host_next_deadline(eng),
-              f"round {rounds}: the fold {nxt} differs from the host scan")
-    elapsed = time.perf_counter() - t0
-    eng.last_ack[np.ix_(lead, [0, 1, 2])] = eng.now_ms()
-    eng.tick_once()  # the last fence wave sees a covering q_ack
-    await eng.shutdown()
-    launches, fold_launches = tick.LAUNCHES, deadline_fold.LAUNCHES
-    probe_commits = eng.commit_abs[lead_probe]
-    stats = eng.lane_stats()
-    hist = eng.tick_histograms()
-    res = {
-        "groups": G, "peers": 4, **mesh_record(eng._mesh),
-        "boot_s": boot_s, "duration_s": elapsed, "ticks": eng.ticks,
-        "ticks_per_sec": eng.ticks / elapsed, "drive_rounds": rounds,
-        "commits": commits[0], "commits_per_sec": commits[0] / elapsed,
-        "witness_groups": stats["witness_groups"],
-        "clamp_probe_groups": int(lead_probe.sum()),
-        "clamp_held": bool((probe_commits <= 3).all()),
-        "clamp_engaged": bool((probe_commits == 3).all()),
-        "witness_commit_ok": bool((eng.commit_abs[(kinds == 1) & leaders]
-                                   >= rounds - 1).all()),
-        "stepdown_ticks": stats["stepdown_ticks"],
-        "stepdown_handler_calls": counts.get("stepdown_tick", 0),
-        "election_due_handled": counts.get("election_due", 0),
-        "fence_armed": stats["fence_lane_armed"],
-        "fence_resolved": stats["fence_lane_resolves"],
-        "fences_pending": stats["fences_pending"],
-        "launches": launches, "fold_calls": fold_calls[0],
-        "fold_launches": fold_launches,
-        "tick_total_ms_p50": hist["tick_total_ms"]["p50"],
-        "tick_device_ms_p50": hist["tick_device_ms"]["p50"],
-        "tick_device_ms_p99": hist["tick_device_ms"]["p99"],
-    }
+    res = await drive_mesh(G, mesh_of(args, torch, MESH_SHARDS), secs,
+                           SEED + 21)
+    res["launches"] = res["fused_tick_launches"]
     log("[12b] " + json.dumps(res))
-    check(res["clamp_probe_groups"] > 0, "no clamp probe on the leader half")
-    check(res["clamp_held"], f"witness clamp breached: {probe_commits[:8]}")
-    check(res["clamp_engaged"], "witness clamp never engaged")
-    check(res["witness_commit_ok"], "witness-conf groups failed to commit")
-    check(res["stepdown_ticks"] > 0 and res["stepdown_handler_calls"] > 0,
-          "the stepdown lane never fired")
-    check(res["fence_resolved"] > 0 and res["fences_pending"] == 0,
-          f"fences: {res['fence_resolved']} resolved, "
-          f"{res['fences_pending']} pending")
-    check(res["election_due_handled"] > 0, "the election lane never fired")
-    check(commits[0] > 0, "no commit advanced through the sharded tick")
-    if not args.cpu:
-        check(launches == eng.ticks * MESH_SHARDS,
-              f"{eng.ticks} engine ticks made {launches} fused-tick "
-              f"launches ({MESH_SHARDS} each expected)")
-        check(fold_launches == fold_calls[0] * MESH_SHARDS,
-              f"{fold_calls[0]} folds made {fold_launches} fold launches")
+    check(res["ok"], f"12(b): {'; '.join(res['failures'])}")
     return res
 
 
@@ -3518,6 +3330,191 @@ def phase_driver_entry(args, torch, dev, tick_rows) -> dict:
     return res
 
 
+# -- phase 14: the bench family --------------------------------------------------
+
+# 14(a): bench_scale.py's 1K rung (1,024 groups x 3 endpoints in one
+# process, P=4, multilog) with a 2 s election timeout released over 3 s,
+# every group led before the drive, and a short drive: offered 8,192
+# entries/s in batches of 16 is a 2 s pace, so 4 s and two batches a
+# group (cut from a 5.33 s drive and an 8 s release to keep the script
+# near 800 s)
+BENCH_SCALE_GROUPS = 1024
+BENCH_SCALE_ETO_MS = 2000
+BENCH_SCALE_SPREAD_S = 3
+BENCH_SCALE_SECS = 4
+BENCH_SCALE_OFFERED = 8192
+# 14(b): bench_e2e.py's 3 store processes at 64 groups, 1 s warm-up, 3 s
+BENCH_E2E_GROUPS = 64
+BENCH_E2E_SECS = 3
+# 14(c): bench_multichip.py --smoke (1,024 groups) over 8 shards, and
+# --engine-shape (1,024 groups on one device, the best of 3 runs of 1 s)
+BENCH_MESH_GROUPS = 1024
+BENCH_MESH_SHARDS = 8
+BENCH_SHAPE_SECS = 1
+BENCH_CHILD_TIMEOUT_S = 300
+
+
+class BenchChild:
+    """One bench script in a process group of its own, its output in
+    files; ``kill`` ends the whole group (an e2e parent's stores)."""
+
+    def __init__(self, args, tag: str, work: str, script: str, *extra):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.tag, self.out = tag, os.path.join(work, f"{tag}.json")
+        self.stdout = os.path.join(work, f"{tag}.stdout")
+        self.stderr = os.path.join(work, f"{tag}.stderr")
+        cmd = [sys.executable, os.path.join(root, script), *extra,
+               "--out", self.out] + (["--cpu"] if args.cpu else [])
+        log(f"[14] {tag}: {' '.join(cmd[1:])}")
+        with open(self.stdout, "w") as so, open(self.stderr, "w") as se:
+            self.proc = subprocess.Popen(cmd, stdout=so, stderr=se,
+                                         cwd=root, start_new_session=True)
+
+    def wait(self) -> dict:
+        """Its exit 0 and its --out record; on failure its error's tail."""
+        try:
+            rc = self.proc.wait(timeout=BENCH_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            with open(self.stderr) as f:
+                tail = f.read()[-3000:]
+            check(False, f"14 {self.tag}: exited {rc}\n{tail}")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def kill(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+
+def phase_bench_family(args) -> dict:
+    """Phase 14, after phase 13, beside no other phase: the port's
+    bench scripts as a user runs them, each in its own processes, (a)
+    and (b) beside (c)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="tpuraft_torch_bench_")
+    small = args.cpu
+    groups = args.groups or 16
+    children = []
+    try:
+        scale = BenchChild(
+            args, "14a_scale", work, "bench_torch_scale.py",
+            "--rungs", str(groups if small else BENCH_SCALE_GROUPS),
+            "--duration", "2" if small else str(BENCH_SCALE_SECS),
+            "--offered", str(BENCH_SCALE_OFFERED // 4 if small
+                             else BENCH_SCALE_OFFERED),
+            "--election-timeout-ms", "1000" if small
+            else str(BENCH_SCALE_ETO_MS),
+            "--elect-spread-s", "0.05" if small
+            else str(BENCH_SCALE_SPREAD_S),
+            "--converge", "1.0")
+        children.append(scale)
+        e2e = BenchChild(
+            args, "14b_e2e", work, "bench_torch_e2e.py",
+            "--groups", str(8 if small else BENCH_E2E_GROUPS),
+            "--duration", str(BENCH_E2E_SECS), "--warmup", "1",
+            "--converge", "1.0")
+        children.append(e2e)
+        mesh_groups = 1024 if small else BENCH_MESH_GROUPS
+        smoke = BenchChild(
+            args, "14c_smoke", work, "bench_torch_multichip.py", "--smoke",
+            "--groups", str(mesh_groups), "--devices",
+            str(BENCH_MESH_SHARDS))
+        children.append(smoke)
+        smoke_rec = smoke.wait()["smoke"]
+        shape = BenchChild(
+            args, "14c_engine_shape", work, "bench_torch_multichip.py",
+            "--engine-shape", "--groups", str(mesh_groups),
+            "--duration", str(BENCH_SHAPE_SECS))
+        children.append(shape)
+        shape_rec = shape.wait()["engine_shape"]
+        scale_rec = scale.wait()
+        e2e_rec = e2e.wait()
+    finally:
+        for c in children:
+            c.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (a) one rung: every group led, every acknowledged write applied on
+    # all three replicas, each engine one launch a tick
+    (row,) = scale_rec["rows"]
+    log("[14a] " + json.dumps(row))
+    check(row["rc"] == 0, f"14(a): the rung exited {row['rc']}")
+    check(row["leaders"] == row["groups"] == row["leaders_at_end"],
+          f"14(a): {row['leaders']} leaders at the drive, "
+          f"{row['leaders_at_end']} after it, of {row['groups']} groups")
+    check(row["errors"] == 0, f"14(a): errors {row['errors_by_class']}")
+    check(row["ok"] > 0, "14(a): no write acknowledged")
+    check(row["applied_total"] == row["replicas"] * row["ok"],
+          f"14(a): {row['applied_total']} applies for {row['ok']} acks x "
+          f"{row['replicas']} replicas")
+    # (b) three store processes over the native transport
+    extra = e2e_rec["extra"]
+    log("[14b] " + json.dumps(e2e_rec))
+    check(extra["store_exit_codes"] == [0] * extra["stores"],
+          f"14(b): store exit codes {extra['store_exit_codes']}")
+    check(e2e_rec["value"] > 0, "14(b): no commit")
+    check(extra["errors"] == 0, f"14(b): {extra['errors']} errors")
+    check(extra["leaders_placed"] == extra["groups"],
+          f"14(b): {extra['leaders_placed']} leaders placed")
+    # (c) the mesh lanes and the single-device shape
+    log("[14c] smoke " + json.dumps(smoke_rec))
+    log("[14c] engine shape " + json.dumps(shape_rec))
+    check(smoke_rec["ok"], f"14(c): {smoke_rec['failures']}")
+    check(smoke_rec["fences_pending"] == 0, "14(c): fences left pending")
+    check(shape_rec["ok"], "14(c): engine shape launches differ from ticks")
+    launches = {
+        "phase14a_scale_rung": sum(row["fused_tick_launches"]),
+        "phase14b_e2e_stores": sum(extra["fused_tick_launches_per_store"]),
+        "phase14c_smoke_mesh": smoke_rec["fused_tick_launches"],
+        "phase14c_engine_shape": sum(r["fused_tick_launches"]
+                                     for r in shape_rec["runs"])}
+    ticks = {
+        "phase14a_scale_rung": sum(row["ticks_by_engine"]),
+        "phase14b_e2e_stores": sum(extra["engine_ticks_per_store"]),
+        "phase14c_smoke_mesh": smoke_rec["ticks"],
+        "phase14c_engine_shape": sum(r["ticks"] for r in shape_rec["runs"])}
+    if not args.cpu:
+        check(row["fused_tick_launches"] == row["ticks_by_engine"],
+              f"14(a): launches {row['fused_tick_launches']} for ticks "
+              f"{row['ticks_by_engine']}")
+        check(extra["fused_tick_launches_per_store"]
+              == extra["engine_ticks_per_store"],
+              f"14(b): launches {extra['fused_tick_launches_per_store']} "
+              f"for ticks {extra['engine_ticks_per_store']}")
+        check(launches["phase14c_smoke_mesh"]
+              == smoke_rec["ticks"] * BENCH_MESH_SHARDS,
+              f"14(c): {smoke_rec['fused_tick_launches']} launches for "
+              f"{smoke_rec['ticks']} ticks x {BENCH_MESH_SHARDS}")
+        check(smoke_rec["fold_launches"]
+              == smoke_rec["fold_calls"] * BENCH_MESH_SHARDS,
+              f"14(c): {smoke_rec['fold_launches']} fold launches for "
+              f"{smoke_rec['fold_calls']} folds x {BENCH_MESH_SHARDS}")
+        check(launches["phase14c_engine_shape"]
+              == ticks["phase14c_engine_shape"],
+              "14(c): engine shape launches differ from ticks")
+    res = {"launches": launches, "ticks": ticks,
+           "fold_launches": smoke_rec["fold_launches"],
+           "fold_calls": smoke_rec["fold_calls"],
+           "engine_ticks_per_sec": shape_rec["engine_ticks_per_sec"],
+           "wall_s": time.perf_counter() - t0}
+    log(f"[14] bench family done in {res['wall_s']:.3f} s: scale rung "
+        f"{row['commits_per_sec']} commits/s (ack p50 {row['ack_p50_ms']} / "
+        f"p99 {row['ack_p99_ms']} ms), e2e {e2e_rec['value']} commits/s, "
+        f"mesh smoke {smoke_rec['ticks_per_sec']} ticks/s over "
+        f"{BENCH_MESH_SHARDS} shards, engine shape "
+        f"{shape_rec['engine_ticks_per_sec']} ticks/s; launches "
+        f"{json.dumps(launches)} for ticks {json.dumps(ticks)}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -3592,6 +3589,7 @@ def main() -> int:
         fleet = asyncio.run(phase_fleet(args))
         phase_fault_plane(faults)
         driver = phase_driver_entry(args, torch, dev, tick_rows)
+        bench = phase_bench_family(args)
     finally:
         stop_fault_plane(faults)
     paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
@@ -3647,6 +3645,10 @@ def main() -> int:
                              "phase13b_dryrun_sharded_tick": DRYRUN_SHARDS,
                              "phase13c_device_plane":
                                  driver["plane"]["ticks_run"]},
+              phase14_launches=bench["launches"],
+              phase14_ticks=bench["ticks"],
+              phase14_mesh_shards={"phase14c_smoke_mesh":
+                                   BENCH_MESH_SHARDS},
               server_engine_ticks={"phase9_supervised_fleet": {
                   ep: m["engine_ticks"]
                   for ep, m in fleet["servers"].items()}},
@@ -3658,7 +3660,9 @@ def main() -> int:
               "region lifecycle) are in launches_by_path; phase 13 (the "
               "driver's entry points and bench.py's pipelined device "
               "plane) in phase13_launches, one a tick (a shard a tick in "
-              "13(b)): phase13_ticks"),
+              "13(b)): phase13_ticks; phase 14 (the bench scripts, each in "
+              "its own processes) in phase14_launches, one an engine tick "
+              "(a shard a tick in 14(c)'s mesh): phase14_ticks"),
     ]
     main_row = next(r for r in replica_rows if (r["R"], r["G"]) == (
         3, replica_res["groups"])) if not args.cpu else replica_rows[0]
@@ -3699,10 +3703,12 @@ def main() -> int:
         "launches": mesh_res["e2e"]["fold_launches"],
         "launches_by_path": {
             "phase12b_mesh_engine": mesh_res["engine"]["fold_launches"],
-            "phase12c_mesh_raft_groups": mesh_res["e2e"]["fold_launches"]},
+            "phase12c_mesh_raft_groups": mesh_res["e2e"]["fold_launches"],
+            "phase14c_smoke_mesh": bench["fold_launches"]},
         "fold_calls_by_path": {
             "phase12b_mesh_engine": mesh_res["engine"]["fold_calls"],
-            "phase12c_mesh_raft_groups": mesh_res["e2e"]["fold_calls"]},
+            "phase12c_mesh_raft_groups": mesh_res["e2e"]["fold_calls"],
+            "phase14c_smoke_mesh": bench["fold_calls"]},
         "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
         "ms": fold_main["ms"], "plain_ms": fold_main["plain_ms"],
         "bound_ms": fold_main["bound_ms"], "bound_by": "bytes",
@@ -3712,8 +3718,8 @@ def main() -> int:
         "mesh": mesh_res["kernels"]["mesh"],
         "main_path": "launches counts phase 12(c), 3 x 256 raft groups on "
                      "engines over 4 shards: one launch a shard a deadline "
-                     "fold of the engines' loops; phase 12(b) folds once a "
-                     "drive round over 8 shards",
+                     "fold of the engines' loops; phases 12(b) and 14(c) "
+                     "fold once a drive round over 8 shards",
         "by_shape": fold_rows})
     for k in kernels:
         if k["name"] == "deadline_fold":

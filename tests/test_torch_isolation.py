@@ -386,8 +386,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-     ROOT / "bench_torch_tick.py", ROOT / "bench_torch_kv.py",
-     ROOT / "profile_torch_leg_a.py", ROOT / "probe_torch_replica.py"],
+     *ROOT.glob("bench_torch_*.py"), *ROOT.glob("probe_torch_*.py"),
+     *ROOT.glob("profile_torch_*.py")],
     key=str),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_tpuraft_imports_in_source(path):

@@ -43,6 +43,16 @@ def card_record(torch) -> dict:
             "count": torch.cuda.device_count()}
 
 
+def host_record() -> dict:
+    """A host-plane record's machine: no device runs its work, and the
+    card beside it (name and power limit), where there is one."""
+    import torch
+
+    return {"device": None, "plane": "host",
+            "card": card_record(torch) if torch.cuda.is_available()
+            else None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",

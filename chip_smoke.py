@@ -166,7 +166,25 @@ Phases (any failure exits non-zero; none is caught):
      c. --smoke over 8 shards of cuda:0 at 1,024 groups, every lane
         assertion holding, launches = ticks x 8 and fold launches =
         folds x 8; --engine-shape at 1,024 groups, launches = ticks and
-        the tick rate logged.
+        the tick rate logged;
+ 15. the KV store bench at region density and the host-plane A/Bs, each
+     script in its own process group as a user runs it, all four at
+     once, after phase 14:
+     a. bench_torch_region_density.py: 256 regions x 3 stores in one
+        process (engines of G=512, P=4 on the card, native KV engines,
+        multilog journals, the counting PD), a 1.5 s election timeout
+        released over four timeouts, every region led, 3 s of the 75/25
+        put/get mix from 24 workers, then one traced put and one traced
+        get: exit 0, every region led after the drive, acks and no error,
+        both probes' stage marks, each engine's launches = its ticks;
+     b. bench_torch_multiproc.py: 3 rheakv_server processes (no engine,
+        the native transport, store and journal) at 64 regions, 24
+        workers for 2 s; c. bench_torch_gray.py: both arms (detection on
+        and off) at 16 regions, 8 workers, 2 s healthy and 4 s slow-disk
+        phases; d. bench_torch_geo.py's four topologies at 20 ops a row:
+        exit 0, every key of the reference's record, work in every row
+        and arm, geo's commit and ack counts equal to its ops; gray's
+        ratios logged, not gated.
 With --cpu the server processes of legs C and D and of phase 9 run
 their engines on the CPU. The last four lines are the native libraries,
 the card, the kernel table and the result, the last two JSON.
@@ -3358,17 +3376,21 @@ class BenchChild:
     """One bench script in a process group of its own, its output in
     files; ``kill`` ends the whole group (an e2e parent's stores)."""
 
-    def __init__(self, args, tag: str, work: str, script: str, *extra):
+    def __init__(self, args, tag: str, work: str, script: str, *extra,
+                 device: bool = True, env: dict | None = None):
         root = os.path.dirname(os.path.abspath(__file__))
         self.tag, self.out = tag, os.path.join(work, f"{tag}.json")
         self.stdout = os.path.join(work, f"{tag}.stdout")
         self.stderr = os.path.join(work, f"{tag}.stderr")
+        # a host-plane script runs no engine and takes no --cpu
         cmd = [sys.executable, os.path.join(root, script), *extra,
-               "--out", self.out] + (["--cpu"] if args.cpu else [])
-        log(f"[14] {tag}: {' '.join(cmd[1:])}")
+               "--out", self.out] + (["--cpu"] if args.cpu and device
+                                     else [])
+        log(f"[{tag[:2]}] {tag}: {' '.join(cmd[1:])}")
         with open(self.stdout, "w") as so, open(self.stderr, "w") as se:
-            self.proc = subprocess.Popen(cmd, stdout=so, stderr=se,
-                                         cwd=root, start_new_session=True)
+            self.proc = subprocess.Popen(
+                cmd, stdout=so, stderr=se, cwd=root,
+                start_new_session=True, env=dict(os.environ, **(env or {})))
 
     def wait(self) -> dict:
         """Its exit 0 and its --out record; on failure its error's tail."""
@@ -3379,7 +3401,7 @@ class BenchChild:
         if rc != 0:
             with open(self.stderr) as f:
                 tail = f.read()[-3000:]
-            check(False, f"14 {self.tag}: exited {rc}\n{tail}")
+            check(False, f"{self.tag}: exited {rc}\n{tail}")
         with open(self.out) as f:
             return json.load(f)
 
@@ -3515,6 +3537,195 @@ def phase_bench_family(args) -> dict:
     return res
 
 
+# -- phase 15: the KV store bench at region density and the host A/Bs ----------
+
+# 15(a): bench_region_density.py's store at 256 regions x 3 (G = 512), a
+# 1.5 s election timeout (from 10; released over 6 s), a 3 s drive (from
+# 30), every region led first
+BENCH_REGIONS = 256
+BENCH_REGIONS_ETO_MS = 1500
+BENCH_REGIONS_SECS = 3
+# 15(b)-(d), host only, beside (a): bench_multiproc.py at 64 regions (from
+# 1,024), 24 workers for 2 s (from 30), a 2 s election timeout (from 10);
+# bench_gray.py's two arms at 16 regions and 8 workers (from 128 and 32),
+# 2 s healthy and 4 s faulted (from 10 and 30); bench_geo.py at 20 ops a
+# row (from 150). Phase 15 took 35.6 and 40.2 s at 4 s drives, 3 s for
+# the A/B and 5 s faulted; cut after the whole script took 820 s
+BENCH_MP_REGIONS = 64
+BENCH_MP_WORKERS = 24
+BENCH_MP_SECS = 2
+BENCH_MP_ETO_MS = 2000
+BENCH_GRAY_SHAPE = (16, 8, 2, 4)  # regions, workers, healthy s, fault s
+BENCH_GEO_OPS = 20
+# the reference scripts' record keys, which each port record holds
+REGION_ROW_KEYS = (
+    "regions", "stores", "topology", "leaders", "boot_s", "elect_s",
+    "ops_per_sec", "ok", "errors", "ack_p50_ms", "ack_p99_ms", "rss_mb",
+    "rss_kb_per_region", "pd_store_hb_per_s", "pd_region_hb_per_s",
+    "pd_batch_hb_per_s", "pd_delta_rows_per_s", "pd_rpcs_per_s",
+    "asyncio_tasks", "workers", "pace_ms", "read_frac", "read_from",
+    "lease_reads", "kv_batch_rpcs_per_s", "kv_batch_items_per_rpc",
+    "kv_batch_fallbacks", "kv_batch_retry_codes", "srv_batch_rpcs",
+    "srv_single_rpcs", "fsm_coalesced_flushes", "fsm_coalesced_ops",
+    "stage_marks_ms", "write_plane", "read_stage_marks_ms", "read_plane",
+    "tick_plane", "heat", "wall_s")
+MP_ROW_KEYS = (
+    "regions", "stores", "topology", "host_cpus", "boot_s", "elect_s",
+    "ops_per_sec", "ok", "errors", "ack_p50_ms", "ack_p99_ms", "workers",
+    "pace_ms", "read_frac", "transport", "store", "apply_lane",
+    "encode_lane", "cpu_s_per_store", "cpu_s_client", "cpu_cores_used",
+    "kv_batch_rpcs_per_s", "kv_batch_items_per_rpc", "store_metrics",
+    "wall_s")
+GRAY_KEYS = ("bench", "regions", "workers", "fault", "arms", "claim")
+GRAY_ARM_KEYS = (
+    "detection", "ops", "healthy_p99_ms", "faulted_p99_ms",
+    "recovered_p99_ms", "window_ops", "victim", "victim_led_regions_before",
+    "victim_led_regions_after", "evacuations", "shed_items", "faulted_x",
+    "recovered_x")
+GEO_KEYS = ("bench", "seed", "ops_per_row", "link_shape", "rows", "note")
+GEO_ROW_KEYS = ("topology", "stores", "zones", "witness", "degraded_wan",
+                "commit", "ack", "topology_counters")
+
+
+def has_keys(rec: dict, keys, what: str) -> None:
+    missing = sorted(set(keys) - set(rec))
+    check(not missing, f"{what}: the reference's keys {missing} missing")
+
+
+def roomy_tmp() -> str | None:
+    """Where phase 15's stores keep their data: the default temporary
+    directory, or /dev/shm where statvfs reads the default's filesystem
+    past a store's near-full mark and /dev/shm has room. These scripts'
+    stores take no explicit disk budget (neither the reference's nor the
+    port's has a flag for one), and a store on a full filesystem sheds
+    every write."""
+    import tempfile
+
+    def used(path: str) -> float:
+        sv = os.statvfs(path)
+        return 1.0 - sv.f_bavail / max(1, sv.f_blocks)
+
+    if used(tempfile.gettempdir()) < 0.8:
+        return None
+    shm = "/dev/shm"
+    if os.path.isdir(shm) and os.access(shm, os.W_OK) and used(shm) < 0.5:
+        return shm
+    return None
+
+
+def phase_store_benches(args) -> dict:
+    """Phase 15, after phase 14: the KV store bench at region density
+    with its engines on the card, and the three host-plane A/Bs beside
+    it, each script in its own process group."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="tpuraft_torch_bench15_",
+                            dir=roomy_tmp())
+    env = {"TMPDIR": work}
+    small = args.cpu
+    regions = (args.groups or 16) if small else BENCH_REGIONS
+    g_regions, g_workers, g_healthy, g_fault = BENCH_GRAY_SHAPE
+    children = []
+    try:
+        dens = BenchChild(
+            args, "15a_region_density", work, "bench_torch_region_density.py",
+            "--regions", str(regions), "--duration", str(BENCH_REGIONS_SECS),
+            "--election-timeout-ms", "1000" if small
+            else str(BENCH_REGIONS_ETO_MS), "--converge", "1.0", env=env)
+        children.append(dens)
+        mp = BenchChild(
+            args, "15b_multiproc", work, "bench_torch_multiproc.py",
+            "--regions", str(8 if small else BENCH_MP_REGIONS),
+            "--workers", str(BENCH_MP_WORKERS),
+            "--duration", str(BENCH_MP_SECS),
+            "--election-timeout-ms", str(BENCH_MP_ETO_MS),
+            device=False, env=env)
+        children.append(mp)
+        gray = BenchChild(
+            args, "15c_gray", work, "bench_torch_gray.py",
+            "--regions", str(g_regions), "--workers", str(g_workers),
+            "--healthy-s", str(g_healthy), "--fault-s", str(g_fault),
+            device=False, env=env)
+        children.append(gray)
+        geo = BenchChild(args, "15d_geo", work, "bench_torch_geo.py",
+                         "--ops", str(BENCH_GEO_OPS), device=False, env=env)
+        children.append(geo)
+        geo_rec = geo.wait()
+        gray_rec = gray.wait()
+        mp_rec = mp.wait()
+        dens_rec = dens.wait()
+    finally:
+        for c in children:
+            c.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (a) the store at region density, its engines on the card
+    (key,) = [k for k in dens_rec if k.startswith("row")]
+    row = dens_rec[key]
+    log("[15a] " + json.dumps(row))
+    has_keys(row, REGION_ROW_KEYS, "15(a)")
+    check(row["rc"] == 0, f"15(a): the child exited {row['rc']}")
+    check(row["leaders"] == row["leaders_at_end"] == regions,
+          f"15(a): {row['leaders']} leaders at the drive, "
+          f"{row['leaders_at_end']} after it, of {regions} regions")
+    check(row["ok"] > 0, "15(a): no op acknowledged")
+    check(row["errors"] == 0, f"15(a): {row['errors']} errors "
+          f"(retry codes {row['kv_batch_retry_codes']})")
+    check({"propose_s", "quorum_e", "apply_e", "ack"}
+          <= set(row["stage_marks_ms"]),
+          f"15(a): the put probe's marks {row['stage_marks_ms']}")
+    check({"fence_s", "fence_e"} <= set(row["read_stage_marks_ms"]),
+          f"15(a): the get probe's marks {row['read_stage_marks_ms']}")
+    if not args.cpu:
+        check(row["fused_tick_launches"] == row["ticks_by_engine"],
+              f"15(a): launches {row['fused_tick_launches']} for ticks "
+              f"{row['ticks_by_engine']}")
+    # (b) the store across processes
+    mp_rows = [r for k, r in mp_rec.items() if k.startswith("row_mp")]
+    log("[15b] " + json.dumps(mp_rows))
+    check(len(mp_rows) == 1, f"15(b): {len(mp_rows)} rows, not 1")
+    for r in mp_rows:
+        has_keys(r, MP_ROW_KEYS, "15(b)")
+        check(r["ok"] > 0, f"15(b): no write acknowledged in {r['row']}")
+    # (c) gray failure, both arms
+    log("[15c] " + json.dumps(gray_rec))
+    has_keys(gray_rec, GRAY_KEYS, "15(c)")
+    check(set(gray_rec["arms"]) == {"on", "off"},
+          f"15(c): arms {sorted(gray_rec['arms'])}")
+    for name, arm in gray_rec["arms"].items():
+        has_keys(arm, GRAY_ARM_KEYS, f"15(c) {name}")
+        check(arm["ops"] > 0, f"15(c): no op in the {name} arm")
+    # (d) geo latency rows
+    log("[15d] " + json.dumps(geo_rec))
+    has_keys(geo_rec, GEO_KEYS, "15(d)")
+    check(len(geo_rec["rows"]) == 4, f"15(d): {len(geo_rec['rows'])} rows")
+    for r in geo_rec["rows"]:
+        has_keys(r, GEO_ROW_KEYS, f"15(d) {r['topology']}")
+        check(r["ops"] > 0 and r["commit"]["n"] == r["ack"]["n"] == r["ops"],
+              f"15(d) {r['topology']}: {r['commit']['n']} commits and "
+              f"{r['ack']['n']} acks of {r['ops']} ops")
+    res = {"launches": {"phase15a_region_density":
+                        sum(row["fused_tick_launches"])},
+           "ticks": {"phase15a_region_density": sum(row["ticks_by_engine"])},
+           "multiproc_ops_per_sec": [r["ops_per_sec"] for r in mp_rows],
+           "gray_ratios": {name: {"faulted_x": arm["faulted_x"],
+                                  "recovered_x": arm["recovered_x"]}
+                           for name, arm in gray_rec["arms"].items()},
+           "geo_commit_p50_ms": {r["topology"]: r["commit"]["p50_ms"]
+                                 for r in geo_rec["rows"]},
+           "wall_s": time.perf_counter() - t0}
+    log(f"[15] store benches done in {res['wall_s']:.3f} s: {regions} "
+        f"regions x 3 at {row['ops_per_sec']} ops/s (ack p50 "
+        f"{row['ack_p50_ms']} / p99 {row['ack_p99_ms']} ms), launches "
+        f"{row['fused_tick_launches']} for ticks {row['ticks_by_engine']}; "
+        f"multiproc {res['multiproc_ops_per_sec']} ops/s; gray ratios "
+        f"(recorded, not gated) {json.dumps(res['gray_ratios'])}; geo "
+        f"commit p50 {json.dumps(res['geo_commit_p50_ms'])}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -3590,6 +3801,7 @@ def main() -> int:
         phase_fault_plane(faults)
         driver = phase_driver_entry(args, torch, dev, tick_rows)
         bench = phase_bench_family(args)
+        stores15 = phase_store_benches(args)
     finally:
         stop_fault_plane(faults)
     paths = {"phase5_raft_groups": e2e, "phase6_kv_store": kv["store"],
@@ -3649,6 +3861,8 @@ def main() -> int:
               phase14_ticks=bench["ticks"],
               phase14_mesh_shards={"phase14c_smoke_mesh":
                                    BENCH_MESH_SHARDS},
+              phase15_launches=stores15["launches"],
+              phase15_ticks=stores15["ticks"],
               server_engine_ticks={"phase9_supervised_fleet": {
                   ep: m["engine_ticks"]
                   for ep, m in fleet["servers"].items()}},
@@ -3662,7 +3876,10 @@ def main() -> int:
               "plane) in phase13_launches, one a tick (a shard a tick in "
               "13(b)): phase13_ticks; phase 14 (the bench scripts, each in "
               "its own processes) in phase14_launches, one an engine tick "
-              "(a shard a tick in 14(c)'s mesh): phase14_ticks"),
+              "(a shard a tick in 14(c)'s mesh): phase14_ticks; phase 15 "
+              "(the KV store bench at region density, in its own "
+              "processes) in phase15_launches, one an engine tick: "
+              "phase15_ticks"),
     ]
     main_row = next(r for r in replica_rows if (r["R"], r["G"]) == (
         3, replica_res["groups"])) if not args.cpu else replica_rows[0]

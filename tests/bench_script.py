@@ -1,12 +1,15 @@
 """Run a root bench script as a child, as its user does: helpers for
 the tests of the port's bench family against the JAX package's."""
 
+import contextlib
 import glob
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -22,12 +25,41 @@ def records() -> dict:
     return out
 
 
-def start(script, *args, env=None) -> subprocess.Popen:
-    """``python3 script args`` from the repo root, output captured."""
+def start(script, *args, env=None, cwd=REPO) -> subprocess.Popen:
+    """``python3 script args`` from the repo root (or ``cwd``), output
+    captured."""
     return subprocess.Popen(
-        [sys.executable, os.path.join(REPO, script), *args], cwd=REPO,
+        [sys.executable, os.path.join(REPO, script), *args], cwd=cwd,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=REPO, **(env or {})))
+
+
+def has_room(path: str) -> bool:
+    """Whether a store's statvfs-derived disk budget reads ``path``'s
+    filesystem as well under its near-full mark (80 % used): at least
+    half of it and 1 GiB available to an unprivileged writer."""
+    sv = os.statvfs(path)
+    free = sv.f_bavail * sv.f_frsize
+    return sv.f_blocks > 0 and free >= 1 << 30 \
+        and sv.f_bavail >= sv.f_blocks // 2
+
+
+@contextlib.contextmanager
+def roomy_dir(tmp_path):
+    """A directory for the data of stores that read their capacity from
+    statvfs (a bench script's stores take no explicit budget): a fresh
+    one under /dev/shm where that filesystem has room, else ``tmp_path``
+    (a full filesystem turns every store SICK, and it sheds writes).
+    Yields (path, whether it has room); removes what it made."""
+    shm = "/dev/shm"
+    if os.path.isdir(shm) and os.access(shm, os.W_OK) and has_room(shm):
+        path = tempfile.mkdtemp(prefix="tpuraft_bench_test_", dir=shm)
+        try:
+            yield path, True
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+    else:
+        yield str(tmp_path), has_room(str(tmp_path))
 
 
 def finish(proc, timeout=150) -> tuple[int, str, str]:

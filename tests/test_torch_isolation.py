@@ -139,9 +139,14 @@ def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
     """examples/soak.py: the ``device`` keyword (run_soak's,
     run_lifecycle_soak's and SoakCluster.__init__'s signatures, the
     attribute it sets, the SoakCluster calls that pass it on and the
-    TickOptions that takes it), and run_lifecycle_soak's wait for the
+    TickOptions that takes it), run_lifecycle_soak's wait for the
     initial regions, which the port ends when the PD's regions tile the
-    keyspace (the original's count races the PD's cold merges)."""
+    keyspace (the original's count races the PD's cold merges), and its
+    PD with the import that names ClusterStatsManager: the port never
+    merges the fleet under the hot detector's ``hot_min_population``
+    (the original's floor, half the regions, is 6 at 12, where no region
+    can be flagged hot, so a hotspot that heats after the merges never
+    splits)."""
     fns = {n.name: n for n in tree.body
            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
     cluster = next(n for n in tree.body if isinstance(n, ast.ClassDef)
@@ -162,6 +167,9 @@ def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
             for n in ast.walk(fns["run_lifecycle_soak"])
             if isinstance(n, ast.While)
             and "PD never learned" in ast.unparse(n)]
+    life = fns["run_lifecycle_soak"].body
+    out += [_stmt(life, "from tpuraft_torch.rheakv.pd_server import"),
+            _stmt(life, "pd = PlacementDriverServer(")]
     return out
 
 
@@ -316,7 +324,7 @@ def test_copy_matches_original(rel):
                 "storage/native_log.py": 1, "storage/multilog.py": 1,
                 "rheakv/native_store.py": 1, "rpc/native_tcp.py": 1,
                 "examples/proc_supervisor.py": 1,
-                "examples/soak.py": 8,
+                "examples/soak.py": 10,
                 "parallel/replica_plane.py": 5,
                 "parallel/replica_cluster.py": 3,
                 "examples/replica_plane.py": 5,

@@ -15,6 +15,7 @@ import inspect
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import pytest
@@ -138,6 +139,81 @@ async def test_lifecycle_soak_learns_regions_past_an_early_merge(
     assert 0 < most_held[0] < 12
     assert r["merges_completed"] > 0 and r["coverage_errors"] == [], r
     assert r["linearizable"], r
+
+
+# the lifecycle soak with its traffic held until the PD's cold merges
+# are done: the soak's own merge floor, and the floor it had before it
+# counted the hot detector's population (max(4, regions // 2) = 6 at 12)
+MERGE_FIRST_SECS = 20
+_MERGE_FLOORS = {"soak": None, "half_the_regions": 6}
+
+
+@pytest.mark.parametrize("floor", list(_MERGE_FLOORS))
+async def test_lifecycle_soak_heats_after_the_merges_are_done(
+        tmp_path, monkeypatch, floor):
+    """The lifecycle soak with every put and get held until the PD has
+    merged the cold fleet down to its floor: the hotspot heats only
+    after the merges, the schedule that stopped a card run at 12 -> 6
+    regions. The PD's hot detector needs ``hot_min_population`` regions
+    reporting heat before it flags any, and a heat split needs a flag:
+    the soak's floor keeps that many regions, so the hotspot still
+    splits; a floor of 6 leaves too few, and no region ever splits."""
+    from tests.test_torch_kv import DISK_BUDGET
+    from tpuraft_torch.rheakv import pd_server
+    from tpuraft_torch.rheakv.pd_server import (ClusterStatsManager,
+                                                PlacementDriverServer)
+
+    monkeypatch.setattr(soak, "StoreEngineOptions", functools.partial(
+        soak.StoreEngineOptions, disk_budget_bytes=DISK_BUDGET))
+    monkeypatch.setattr(options, "TickOptions", functools.partial(
+        options.TickOptions, backend="numpy"))
+    if _MERGE_FLOORS[floor] is not None:
+        pd_options = pd_server.PlacementDriverOptions
+
+        def floored(*a, **kw):  # over the soak's own keyword
+            kw["lifecycle_min_regions"] = _MERGE_FLOORS[floor]
+            return pd_options(*a, **kw)
+
+        monkeypatch.setattr(pd_server, "PlacementDriverOptions", floored)
+    pds, at_traffic = [], []
+    pd_start = PlacementDriverServer.start
+
+    async def pd_watched(self, *a, **kw):
+        pds.append(self)
+        return await pd_start(self, *a, **kw)
+
+    async def merged_down():
+        pd, t0 = pds[0], time.monotonic()
+        while (len(pd.fsm.regions) > pd.opts.lifecycle_min_regions
+               or pd.fsm.pending_merges):
+            assert time.monotonic() - t0 < 60, "the merges never settled"
+            await asyncio.sleep(0.05)
+        if not at_traffic:
+            at_traffic.append(len(pd.fsm.regions))
+
+    class MergedFirst(soak.RheaKVStore):
+        async def put(self, *a, **kw):
+            await merged_down()
+            return await super().put(*a, **kw)
+
+        async def get(self, *a, **kw):
+            await merged_down()
+            return await super().get(*a, **kw)
+
+    monkeypatch.setattr(PlacementDriverServer, "start", pd_watched)
+    monkeypatch.setattr(soak, "RheaKVStore", MergedFirst)
+    r = await asyncio.wait_for(soak.run_lifecycle_soak(
+        MERGE_FIRST_SECS, 4, 12, 11, str(tmp_path), False, device="cpu"),
+        150)
+    assert at_traffic == [pds[0].opts.lifecycle_min_regions], at_traffic
+    assert r["linearizable"] and r["coverage_errors"] == [], r
+    if floor == "soak":
+        assert at_traffic[0] >= ClusterStatsManager.hot_min_population
+        assert r["heat_splits_ordered"] > 0, r
+        assert r["lifecycle_ok"], r
+    else:
+        assert at_traffic[0] < ClusterStatsManager.hot_min_population
+        assert r["heat_splits_ordered"] == 0, r
 
 
 async def test_hotspot_soak_on_the_cpu(tmp_path, monkeypatch):

@@ -1925,7 +1925,8 @@ async def run_lifecycle_soak(duration_s: float, n_stores: int,
 
     from tpuraft_torch.rheakv.keyspace import coverage_errors
     from tpuraft_torch.rheakv.pd_client import RemotePlacementDriverClient
-    from tpuraft_torch.rheakv.pd_server import (PlacementDriverOptions,
+    from tpuraft_torch.rheakv.pd_server import (ClusterStatsManager,
+                                          PlacementDriverOptions,
                                           PlacementDriverServer)
 
     rng = random.Random(seed)
@@ -1956,7 +1957,11 @@ async def run_lifecycle_soak(duration_s: float, n_stores: int,
             lifecycle=True,
             lifecycle_heat_split_min_keys=16,
             lifecycle_merge_cooldown_s=1.0,
-            lifecycle_min_regions=max(4, n_regions // 2),
+            # never merge under the regions the hot detector needs
+            # reporting heat: below them no region is flagged, and no
+            # heat split can follow
+            lifecycle_min_regions=max(4, n_regions // 2,
+                                      ClusterStatsManager.hot_min_population),
             lifecycle_move_cooldown_s=1.0,
             lifecycle_move_imbalance=2),
         pd_ep, server, InProcTransport(c.net, pd_ep))

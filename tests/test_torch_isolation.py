@@ -173,6 +173,22 @@ def _soak_spans(tree: ast.Module) -> list[tuple[int, int]]:
     return out
 
 
+def _pd_spans(tree: ast.Module) -> list[tuple[int, int]]:
+    """rheakv/pd_server.py: the PD's merge pick, which the port holds
+    under one lock until its pending pair is replicated (the original
+    picks during another heartbeat batch's replication, without that
+    pair in its floor count, and merges the fleet under its floor), the
+    lock in ``__init__`` and the import that makes it."""
+    d = _defs(tree)
+    life = d["PlacementDriverServer._lifecycle_pass"].body
+    pick = _stmt(life, "pick = placement.pick_merge(")
+    merge = _stmt(life, "if pick is not None:")
+    return [_stmt(tree.body, "import logging"),
+            _stmt(d["PlacementDriverServer.__init__"].body,
+                  "self._group: Optional[RaftGroupService] = None"),
+            (pick[0], merge[1])]
+
+
 def _stmt(body, prefix: str) -> tuple[int, int]:
     """The span of the one statement of ``body`` whose source starts
     with ``prefix``."""
@@ -285,6 +301,8 @@ def _spans(src: str, rel: str) -> list[tuple[int, int]]:
         return _engine_spans(tree)
     if rel == "examples/soak.py":
         return _soak_spans(tree)
+    if rel == "rheakv/pd_server.py":
+        return _pd_spans(tree)
     out = []
     if rel in ("storage/native_log.py", "storage/multilog.py",
                "rheakv/native_store.py", "rpc/native_tcp.py"):
@@ -324,7 +342,7 @@ def test_copy_matches_original(rel):
                 "storage/native_log.py": 1, "storage/multilog.py": 1,
                 "rheakv/native_store.py": 1, "rpc/native_tcp.py": 1,
                 "examples/proc_supervisor.py": 1,
-                "examples/soak.py": 10,
+                "examples/soak.py": 10, "rheakv/pd_server.py": 3,
                 "parallel/replica_plane.py": 5,
                 "parallel/replica_cluster.py": 3,
                 "examples/replica_plane.py": 5,
@@ -403,6 +421,21 @@ def test_no_jax_or_tpuraft_imports_in_source(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "tpuraft", "examples"), \
             f"{path}: {mod}"
+        # nor a root script of the JAX package (bench.py, bench_*.py,
+        # __graft_entry__.py): the port's scripts import only their own
+        assert not (top in ("bench", "__graft_entry__")
+                    or (top.startswith("bench_")
+                        and not top.startswith("bench_torch_"))), \
+            f"{path}: {mod}"
+
+
+def test_every_port_root_script_is_held_to_the_import_rule():
+    """The rule above reads every ``bench_torch_*.py`` by its glob: the
+    gate and each bench script it starts are among them."""
+    scripts = {p.name for p in ROOT.glob("bench_torch_*.py")}
+    assert {"bench_torch_gate.py", "bench_torch_e2e.py",
+            "bench_torch_region_density.py", "bench_torch_multiproc.py",
+            "bench_torch_multichip.py"} <= scripts
 
 
 def test_every_module_imports_without_jax_or_tpuraft():

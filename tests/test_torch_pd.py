@@ -419,6 +419,82 @@ async def test_pd_script_matches_jax_pd(monkeypatch, seed):
     assert tcnt["coverage"] == []
 
 
+async def _concurrent_merge_picks(pkg, clock) -> tuple[int, int]:
+    """One package's single-member lifecycle PD at its merge floor plus
+    one: 5 cold regions over two leader stores, a floor of 4, and both
+    stores' heartbeat batches in flight at once, each able to order a
+    merge of a pair it leads.  Returns (merges ordered, regions left once
+    the pending merges land)."""
+    md, pm, pds = pkg.md, pkg.pm, pkg.pds
+    net = pkg.tr.InProcNetwork()
+    ep = "127.0.0.1:7998"
+    server = pkg.tr.RpcServer(ep)
+    net.bind(server)
+    net.start_endpoint(ep)
+    pd = pds.PlacementDriverServer(pds.PlacementDriverOptions(
+        endpoints=[ep], election_timeout_ms=300, lifecycle=True,
+        lifecycle_merge_cooldown_s=1.0, lifecycle_min_regions=4,
+        lifecycle_move_cooldown_s=1.0, lifecycle_move_imbalance=99),
+        ep, server, pkg.tr.InProcTransport(net, ep))
+    await pd.start()
+    try:
+        deadline = time.monotonic() + 10
+        while not (pd.node is not None and pd.node.is_leader()):
+            assert time.monotonic() < deadline, "PD never elected"
+            await asyncio.sleep(0.02)
+        bounds = [0, 100, 200, 300, 400, SPACE]
+        regions = {rid: md.Region(id=rid, start_key=_key(bounds[rid - 1]),
+                                  end_key=_key(bounds[rid]),
+                                  peers=list(STORES[:3]))
+                   for rid in range(1, 6)}
+        # store 0 leads 1 (its pair 1 -> 2), store 1 leads 2-5 (3 -> 4)
+        led = {STORES[0]: [1], STORES[1]: [2, 3, 4, 5]}
+
+        def batch(i, store, full):
+            return pm.StoreHeartbeatBatchRequest(
+                store_id=i + 1, endpoint=store,
+                deltas=[pm.encode_region_delta(regions[rid].encode(),
+                                               store, 5)
+                        for rid in led[store]] if full else [],
+                full=full, heat=pkg.heat.encode_heat_rows([]),
+                replicas=5, replicas_quiescent=0)
+
+        for i, store in enumerate(led):   # learn the tiling
+            resp = await pd._store_heartbeat_batch(batch(i, store, True))
+        assert coverage_errors(pd.fsm.regions.values()) == []
+        clock.t += 5.0                    # past the new term's grace
+        resps = await asyncio.gather(*(
+            pd._store_heartbeat_batch(batch(i, store, False))
+            for i, store in enumerate(led)))
+        merges = [ins for resp in resps for ins in map(
+            pm.Instruction.decode, resp.instructions)
+            if ins.kind == pm.Instruction.KIND_MERGE]
+        return len(merges), len(pd.fsm.regions) - len(pd.fsm.pending_merges)
+    finally:
+        await pd.shutdown()
+        net.unbind(ep)
+
+
+async def test_concurrent_heartbeats_never_merge_under_the_floor(
+        monkeypatch):
+    """Two stores' heartbeat batches in flight at once, at the merge
+    floor plus one: the JAX package's PD picks a merge in each (each
+    pick reads the pending merges before the other's replicated pair
+    lands) and merges the fleet under its floor; the port's picks one
+    at a time, holding the pick until its pair is replicated, and stops
+    at the floor."""
+    clock = FakeClock()
+    out = {}
+    for name in ("jax", "torch"):
+        pkg = _pkg(name)
+        monkeypatch.setattr(pkg.pds, "time", clock)
+        monkeypatch.setattr(pkg.pl, "time", clock)
+        clock.t = 1000.0
+        out[name] = await _concurrent_merge_picks(pkg, clock)
+    assert out["jax"] == (2, 3)
+    assert out["torch"] == (1, 4)
+
+
 @pytest.mark.parametrize("n", [1, 2, 4, 10, 16, 64, 1024])
 def test_pd_server_seeds_the_regions_of_the_jax_package(n):
     """The PD server copy takes make_regions from the server copy (the

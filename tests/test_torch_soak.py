@@ -144,22 +144,37 @@ async def test_lifecycle_soak_learns_regions_past_an_early_merge(
 # the lifecycle soak with its traffic held until the PD's cold merges
 # are done: the soak's own merge floor, and the floor it had before it
 # counted the hot detector's population (max(4, regions // 2) = 6 at 12)
-MERGE_FIRST_SECS = 20
 _MERGE_FLOORS = {"soak": None, "half_the_regions": 6}
+# the soak's duration after the release: phase 8's (chip_smoke.py
+# LIFECYCLE_SECS).  At the soak's floor the PD's hot detector needs
+# every one of its 8 regions reporting heat, and a region that holds
+# one cold key range sees 15 % of the X ops/s spread over 12 ranges:
+# its 10 s half-life EWMA passes the 0.5 ops/s report gate after
+# -10 log2(1 - 40 / X) s, 10 s at 80 ops/s, 16 s at 60, 23 s at 50,
+# never at 40 or less.  The hot set shifts at half the duration; a
+# detector that forms after the shift sees the old and the new hot
+# sets together (6 warm regions of 8), no region 4x above the median,
+# and flags nothing until the old set cools: at 20 s (a shift at 10 s)
+# a loaded host's case fails so; 60 s holds the shift back until 30 s
+# after the release.
+MERGE_FIRST_SECS = 60
 
 
 @pytest.mark.parametrize("floor", list(_MERGE_FLOORS))
 async def test_lifecycle_soak_heats_after_the_merges_are_done(
         tmp_path, monkeypatch, floor):
-    """The lifecycle soak with every put and get held until the PD has
-    merged the cold fleet down to its floor: the hotspot heats only
-    after the merges, the schedule that stopped a card run at 12 -> 6
-    regions. The PD's hot detector needs ``hot_min_population`` regions
-    reporting heat before it flags any, and a heat split needs a flag:
-    the soak's floor keeps that many regions, so the hotspot still
-    splits; a floor of 6 leaves too few, and no region ever splits."""
+    """The lifecycle soak with its client held until the PD has merged
+    the cold fleet down to its floor: the drivers start, and the soak's
+    clock with them, only after the merges, so the hotspot heats only
+    after them, the schedule that stopped a card run at 12 -> 6
+    regions, and the traffic still runs the soak's whole duration. The
+    PD's hot detector needs ``hot_min_population`` regions reporting
+    heat before it flags any, and a heat split needs a flag: the soak's
+    floor keeps that many regions, so the hotspot still splits; a floor
+    of 6 leaves too few, and no region ever splits."""
     from tests.test_torch_kv import DISK_BUDGET
     from tpuraft_torch.rheakv import pd_server
+    from tpuraft_torch.rheakv.keyspace import coverage_errors
     from tpuraft_torch.rheakv.pd_server import (ClusterStatsManager,
                                                 PlacementDriverServer)
 
@@ -175,45 +190,77 @@ async def test_lifecycle_soak_heats_after_the_merges_are_done(
             return pd_options(*a, **kw)
 
         monkeypatch.setattr(pd_server, "PlacementDriverOptions", floored)
-    pds, at_traffic = [], []
+    pds, at_traffic, released, op_times, seen = [], [], [], [], []
     pd_start = PlacementDriverServer.start
 
     async def pd_watched(self, *a, **kw):
         pds.append(self)
         return await pd_start(self, *a, **kw)
 
-    async def merged_down():
-        pd, t0 = pds[0], time.monotonic()
-        while (len(pd.fsm.regions) > pd.opts.lifecycle_min_regions
-               or pd.fsm.pending_merges):
-            assert time.monotonic() - t0 < 60, "the merges never settled"
-            await asyncio.sleep(0.05)
-        if not at_traffic:
-            at_traffic.append(len(pd.fsm.regions))
+    async def watch_heat():
+        # the PD's picture once a second, for the failure message:
+        # [s after the release, regions, regions with live heat, hot
+        # threshold (None: too few reporters), hot flags, heat splits]
+        while True:
+            if released and pds:
+                pd, stats = pds[0], pds[0].stats
+                thr = stats._hot_threshold
+                seen.append([round(time.monotonic() - released[0], 1),
+                             len(pd.fsm.regions),
+                             sum(1 for e in stats._stats.values()
+                                 if e.heat_at > 0),
+                             thr if thr is None else round(thr, 2),
+                             len(stats._hot), pd.heat_splits_ordered])
+            await asyncio.sleep(1.0)
 
     class MergedFirst(soak.RheaKVStore):
+        async def start(self):
+            await super().start()
+            pd, t0 = pds[0], time.monotonic()
+            while (coverage_errors(pd.fsm.regions.values())
+                   or len(pd.fsm.regions) > pd.opts.lifecycle_min_regions
+                   or pd.fsm.pending_merges):
+                assert time.monotonic() - t0 < 60, "the merges never settled"
+                await asyncio.sleep(0.05)
+            at_traffic.append(len(pd.fsm.regions))
+            released.append(time.monotonic())
+
+        async def _timed(self, op, *a, **kw):
+            op_times.append(time.monotonic())
+            try:
+                return await op(*a, **kw)
+            finally:  # a driver's last op ends when the soak stops it
+                op_times.append(time.monotonic())
+
         async def put(self, *a, **kw):
-            await merged_down()
-            return await super().put(*a, **kw)
+            return await self._timed(super().put, *a, **kw)
 
         async def get(self, *a, **kw):
-            await merged_down()
-            return await super().get(*a, **kw)
+            return await self._timed(super().get, *a, **kw)
 
     monkeypatch.setattr(PlacementDriverServer, "start", pd_watched)
     monkeypatch.setattr(soak, "RheaKVStore", MergedFirst)
-    r = await asyncio.wait_for(soak.run_lifecycle_soak(
-        MERGE_FIRST_SECS, 4, 12, 11, str(tmp_path), False, device="cpu"),
-        150)
+    watcher = asyncio.ensure_future(watch_heat())
+    try:
+        r = await asyncio.wait_for(soak.run_lifecycle_soak(
+            MERGE_FIRST_SECS, 4, 12, 11, str(tmp_path), False,
+            device="cpu"), 150)
+    finally:
+        watcher.cancel()
     assert at_traffic == [pds[0].opts.lifecycle_min_regions], at_traffic
+    # the window: no op before the release, and the drivers' traffic
+    # ran the soak's whole duration after it
+    assert op_times and op_times[0] >= released[0]
+    window = op_times[-1] - op_times[0]
+    assert window >= MERGE_FIRST_SECS - 0.5, (window, seen)
     assert r["linearizable"] and r["coverage_errors"] == [], r
     if floor == "soak":
         assert at_traffic[0] >= ClusterStatsManager.hot_min_population
-        assert r["heat_splits_ordered"] > 0, r
-        assert r["lifecycle_ok"], r
+        assert r["heat_splits_ordered"] > 0, (r, seen)
+        assert r["lifecycle_ok"], (r, seen)
     else:
         assert at_traffic[0] < ClusterStatsManager.hot_min_population
-        assert r["heat_splits_ordered"] == 0, r
+        assert r["heat_splits_ordered"] == 0, (r, seen)
 
 
 async def test_hotspot_soak_on_the_cpu(tmp_path, monkeypatch):

@@ -16,6 +16,7 @@ ClusterStatsManager.
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import struct
 import time
@@ -782,6 +783,7 @@ class PlacementDriverServer:
                 move_imbalance=opts.lifecycle_move_imbalance,
                 move_cooldown_s=opts.lifecycle_move_cooldown_s,
                 max_inflight_moves=opts.lifecycle_max_inflight_moves))
+        self._merge_pick_lock = asyncio.Lock()
         self._group: Optional[RaftGroupService] = None
         for method, handler in [
             ("pd_list_regions", self._list_regions),
@@ -1208,13 +1210,20 @@ class PlacementDriverServer:
                                 placement.opts.move_cooldown_s))
         out: list[Instruction] = []
         self.stats.maybe_sweep()
-        pick = placement.pick_merge(
-            self.fsm.regions, self.fsm.region_leaders, store_ep,
-            self.stats, self.fsm.pending_merges, self.fsm.pending_splits)
+        # one merge pick at a time, held until its pending pair is
+        # replicated: the floor and in-flight checks count the pending
+        # pairs, and a batch that picked during another's replication
+        # would not see that one's pair (two picks at the floor plus one
+        # merge the fleet under it)
+        async with self._merge_pick_lock:
+            pick = placement.pick_merge(
+                self.fsm.regions, self.fsm.region_leaders, store_ep,
+                self.stats, self.fsm.pending_merges, self.fsm.pending_splits)
+            if pick is not None:
+                src, tgt = pick
+                tgt = await self._apply(_cmd(
+                    _CMD_MERGE_ISSUED, struct.pack("<qq", src, tgt)))
         if pick is not None:
-            src, tgt = pick
-            tgt = await self._apply(_cmd(
-                _CMD_MERGE_ISSUED, struct.pack("<qq", src, tgt)))
             self.merges_ordered += 1
             placement.note_decision("merge", region=src, into=tgt)
             RECORDER.record("region_merge_ordered", str(src), into=tgt)

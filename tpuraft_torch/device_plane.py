@@ -22,6 +22,12 @@ the blocks the caching allocator hands out again.
 On a card the tick is the fused-tick kernel; on the CPU (only when the
 caller passes ``device="cpu"``) it is the plain version.  No path moves
 from one to the other.
+
+While a torch profiler records, each submit and each drain runs in its
+spans (:class:`tpuraft_torch.ops.tick.Span`, named in ``SPAN_NAMES``),
+every one carrying its tick's index.  With none recording, a submit,
+its tick and a drain each read the profiler's flag once and enter
+:func:`tpuraft_torch.ops.tick.no_span`, which does nothing.
 """
 
 from __future__ import annotations
@@ -35,14 +41,21 @@ import numpy as np
 import torch
 
 from tpuraft_torch.ops import tick as _tick
-from tpuraft_torch.ops.tick import (ROLE_LEADER, GroupState, TickParams,
-                                    raft_tick)
+from tpuraft_torch.ops.tick import (ROLE_LEADER, TICK_SPANS, GroupState,
+                                    TickParams, raft_tick)
 
 RTT_PROBES = 5      # single synchronised ticks: the completion RTT
 BURST = 8           # ticks submitted back to back: the dispatch cost
 PASSES = 3          # measurement passes; the median is reported
 WARMUP_DEPTH = 16   # the window before the link is measured
 MAX_DEPTH = 64
+
+# The loop's spans, parents before their children: a submit
+# (``plane.upload`` and the fused tick's ``tick.*`` on a card only) and
+# a drain of one tick's commit row, under ``plane.retire`` or alone
+SPAN_NAMES = ("plane.submit", "plane.acks_add", "plane.stage",
+              "plane.upload", "plane.tick", *TICK_SPANS, "plane.fetch",
+              "plane.retire", "plane.drain", "plane.wait", "plane.row")
 
 
 def resolve_device(device) -> torch.device:
@@ -195,36 +208,50 @@ class _Plane:
             torch.cuda.current_stream(self.dev).synchronize()
 
     def drain_one(self) -> None:
-        ts, _, slot = self.inflight.popleft()
-        slot.wait()
-        self.last_commit = slot.commit_np.copy()  # the commit ack
-        self.lat.append(time.perf_counter() - ts)
-        if self.rows is not None:
-            self.rows.append(self.last_commit)
-        self.free.append(slot)
+        sp = _tick.spans()
+        j = self.inflight[0][1]
+        with sp("plane.drain", j):
+            ts, _, slot = self.inflight.popleft()
+            with sp("plane.wait", j):
+                slot.wait()
+            with sp("plane.row", j):
+                self.last_commit = slot.commit_np.copy()  # the commit ack
+                self.lat.append(time.perf_counter() - ts)
+                if self.rows is not None:
+                    self.rows.append(self.last_commit)
+                self.free.append(slot)
 
     def drain_all(self) -> None:
         while self.inflight:
             self.drain_one()
 
     def submit(self, i: int) -> None:
-        np.add(self.host_match, self.advances[i], out=self.host_match)
-        slot = self.free.popleft()  # drained: its event has completed
-        np.copyto(slot.match_np, self.host_match)
-        if self.cuda:
-            slot.match_dev.copy_(slot.match, non_blocking=True)
-        state = dataclasses.replace(self.state, match_rel=slot.match_dev)
-        self.state, out = raft_tick(state, i, self.params)
-        slot.commit.copy_(out.commit_rel, non_blocking=self.cuda)
-        if self.cuda:
-            slot.done.record()
-        self.inflight.append((time.perf_counter(), i, slot))
-        self.submitted += 1
-        # drain acks as they arrive, then hold the window
-        while self.inflight and self.inflight[0][2].ready():
-            self.drain_one()
-        while len(self.inflight) >= self.depth:
-            self.drain_one()
+        sp = _tick.spans()
+        with sp("plane.submit", i):
+            with sp("plane.acks_add", i):
+                np.add(self.host_match, self.advances[i], out=self.host_match)
+            with sp("plane.stage", i):
+                slot = self.free.popleft()  # drained: its event has completed
+                np.copyto(slot.match_np, self.host_match)
+            if self.cuda:
+                with sp("plane.upload", i):
+                    slot.match_dev.copy_(slot.match, non_blocking=True)
+            with sp("plane.tick", i):
+                state = dataclasses.replace(self.state,
+                                            match_rel=slot.match_dev)
+                self.state, out = raft_tick(state, i, self.params)
+            with sp("plane.fetch", i):
+                slot.commit.copy_(out.commit_rel, non_blocking=self.cuda)
+                if self.cuda:
+                    slot.done.record()
+                self.inflight.append((time.perf_counter(), i, slot))
+                self.submitted += 1
+            # drain acks as they arrive, then hold the window
+            with sp("plane.retire", i):
+                while self.inflight and self.inflight[0][2].ready():
+                    self.drain_one()
+                while len(self.inflight) >= self.depth:
+                    self.drain_one()
 
     def timed_pass(self, start: int, n: int) -> dict:
         self.lat.clear()

@@ -12,7 +12,12 @@ dispatches on the state's device:
 - CPU tensors take :func:`raft_tick_reference`, the same function as
   plain torch ops.
 
-``LAUNCHES`` counts fused-tick launches (and nothing else).
+``LAUNCHES`` counts fused-tick launches (and nothing else).  While a
+torch profiler records in the process (:func:`tracing`), the fused tick
+(``TICK_SPANS``) and ``device_plane``'s loop enter :class:`Span` ranges,
+which land in the profiler's trace and add up, by name, in ``SPANS``;
+with none recording, each pass reads the profiler's flag once and
+enters :func:`no_span`.
 
 Division of labor (as in the reference design):
   - the tick mutates only *derived, monotone* state (commit_rel and
@@ -27,6 +32,8 @@ indexes are int32 relative to a per-group host-managed base.
 from __future__ import annotations
 
 import dataclasses
+import time
+from collections import defaultdict
 from dataclasses import dataclass, fields
 from typing import Mapping, Optional
 
@@ -45,6 +52,88 @@ ROLE_LEADER = 2
 ROLE_INACTIVE = 3  # unallocated group slot
 
 LAUNCHES = 0  # fused-tick launches since import (or since a caller reset it)
+
+# The fused tick's spans (on a card only), in the order they run
+TICK_SPANS = ("tick.check", "tick.alloc", "tick.launch", "tick.unpack")
+# span name -> [count, ns] of the spans entered since import (or since
+# reset_spans()), a row added as a name is first entered; only while a
+# profiler records, so over what it traced
+SPANS: defaultdict[str, list[int]] = defaultdict(lambda: [0, 0])
+
+
+def tracing() -> bool:
+    """Whether a torch profiler records in this process: spans are
+    entered, and ``SPANS`` counts, exactly then.  A module flag of
+    torch's that the profiler sets on entry and clears on exit; a torch
+    without it reads False here (``tests/test_torch_plane_spans.py``
+    asserts it is there)."""
+    return getattr(torch.autograd.profiler, "_is_profiler_enabled", False)
+
+
+def reset_spans() -> None:
+    """Empty ``SPANS``."""
+    SPANS.clear()
+
+
+class Span:
+    """One span of a host loop, entered only while :func:`tracing`: a
+    profiler range named ``name``, nested under whatever range is open,
+    with ``tick`` (the tick index, a request's identifier) as its
+    keyword input (the trace keeps it under ``record_shapes``); and its
+    count and host nanoseconds added to ``SPANS[name]``.  It reads no
+    tensor and waits on nothing.
+
+    The range is torch's RecordFunction entered straight from C++:
+    1.6-1.7 us a range with a profiler recording on the H100's host,
+    where ``torch.profiler.record_function`` (through the op
+    dispatcher) takes 10-12 us.  It is looked up here, so a torch
+    without it fails a traced run only."""
+
+    __slots__ = ("name", "rf", "t0")
+
+    def __init__(self, name: str, tick: Optional[int] = None):
+        self.name = name
+        rf = torch._C._profiler._RecordFunctionFast
+        self.rf = rf(name) if tick is None else rf(name, (), {"tick": tick})
+
+    def __enter__(self) -> "Span":
+        self.rf.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        ns = time.perf_counter_ns() - self.t0
+        self.rf.__exit__(*exc)
+        row = SPANS[self.name]
+        row[0] += 1
+        row[1] += ns
+
+
+class _NoSpan:
+    """What a span is while no profiler records: nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+def no_span(name: str, tick: Optional[int] = None) -> _NoSpan:
+    """The span that enters no range, reads no clock and counts
+    nothing."""
+    return _NO_SPAN
+
+
+def spans():
+    """What a loop enters its spans with, read once a pass:
+    :class:`Span` while :func:`tracing`, else :func:`no_span`."""
+    return Span if tracing() else no_span
 
 
 @dataclass
@@ -181,17 +270,24 @@ def raft_tick(state: GroupState, now_ms, params: TickParams
     modified.  ``now_ms`` is a Python int or a 0-d int32 tensor.  The
     fused tick on CUDA, the plain version on the CPU; never falls back
     from one to the other."""
-    dev = _tick_device(state, params)
-    if dev.type == "cpu":
-        return raft_tick_reference(state, now_ms, params)
-    g = state.role.shape[0]
-    out = torch.empty(packed_nbytes(g), dtype=torch.uint8, device=dev)
-    deadlines = torch.empty((3, g), dtype=torch.int32, device=dev)
-    _launch_fused_tick(state, now_ms, params, out, deadlines)
-    outputs = unpack_outputs(out, g)
-    new_state = dataclasses.replace(
-        state, commit_rel=outputs.commit_rel, hb_deadline=deadlines[0],
-        snap_deadline=deadlines[1], stepdown_deadline=deadlines[2])
+    # the fused tick's spans; the plain version has none
+    sp = spans() if state.match_rel.device.type == "cuda" else no_span
+    with sp("tick.check"):
+        dev = _tick_device(state, params)
+        if dev.type == "cpu":
+            return raft_tick_reference(state, now_ms, params)
+        args = _fused_tick_args(state, now_ms, params)
+    g = args[2]
+    with sp("tick.alloc"):
+        out = torch.empty(packed_nbytes(g), dtype=torch.uint8, device=dev)
+        deadlines = torch.empty((3, g), dtype=torch.int32, device=dev)
+    with sp("tick.launch"):
+        _fused_tick_call(dev, args, out, deadlines)
+    with sp("tick.unpack"):
+        outputs = unpack_outputs(out, g)
+        new_state = dataclasses.replace(
+            state, commit_rel=outputs.commit_rel, hb_deadline=deadlines[0],
+            snap_deadline=deadlines[1], stepdown_deadline=deadlines[2])
     return new_state, outputs
 
 
@@ -242,6 +338,17 @@ def _launch_fused_tick(state: GroupState, now_ms, params: TickParams,
     """One launch of the fused tick: the packed outputs into ``out`` and,
     when ``deadlines`` ([3, G] int32) is given, the advanced hb,
     snapshot and stepdown deadline rows into it."""
+    sp = spans()
+    with sp("tick.check"):
+        args = _fused_tick_args(state, now_ms, params)
+    with sp("tick.launch"):
+        _fused_tick_call(state.match_rel.device, args, out, deadlines)
+
+
+def _fused_tick_args(state: GroupState, now_ms, params: TickParams
+                     ) -> tuple[list, int, int, int]:
+    """The fused tick's checks of every field: (the state's and the
+    parameters' pointers, now as int32, G, P)."""
     if state.match_rel.dim() != 2:
         raise ValueError(f"raft_tick: match_rel must be [G, P], got "
                          f"{tuple(state.match_rel.shape)}")
@@ -275,12 +382,19 @@ def _launch_fused_tick(state: GroupState, now_ms, params: TickParams,
     # clock) wraps to int32 as torch casts it
     # graftcheck: allow(host-sync) — the tick's clock, read once by value
     now = (int(now_ms) + 2**31) % 2**32 - 2**31
+    return ptrs, now, g, p
+
+
+def _fused_tick_call(dev: torch.device, args, out: torch.Tensor,
+                     deadlines) -> None:
+    """The launch itself, on ``dev``'s current stream, with the checked
+    ``args`` of :func:`_fused_tick_args`."""
+    ptrs, now, g, p = args
     new = ([deadlines[i].data_ptr() for i in range(3)]
            if deadlines is not None else [None] * 3)
     if g == 0:
         return
     lib = quorum_cuda.load()
-    dev = state.match_rel.device
     with torch.cuda.device(dev):
         rc = lib.tpuraft_fused_tick(
             *ptrs, now, out.data_ptr(), *new, g, p,
